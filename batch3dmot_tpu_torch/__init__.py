@@ -1,0 +1,27 @@
+"""batch3dmot_tpu_torch: the PyTorch + CUDA port of batch3dmot_tpu.
+
+Offline 3D multi-object tracking with a time-aware message-passing GNN and
+cross-edge modality attention, written for one NVIDIA Hopper GPU. The
+module layout mirrors ``batch3dmot_tpu``; the JAX package stays the
+reference and the tests hold each part of this one against it.
+
+The inference entry points run on ``cuda`` unless the caller passes
+``device="cpu"``; without a GPU they raise instead of running on the CPU.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__version__ = "0.1.0"
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as a torch.device; None means the GPU, which must exist."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: pass device='cpu' to run on the CPU"
+            )
+        return torch.device("cuda")
+    return torch.device(device)

@@ -1,0 +1,70 @@
+"""Configuration the inference slice reads: tracking classes, per-class
+thresholds, graph construction and predict settings.
+
+A copy of the matching parts of ``batch3dmot_tpu/config.py`` (the port
+imports nothing of the JAX package), cut to the fields the port reads; the
+other fields come with the slices that read them. The dataclasses are built
+in code, so this module never imports ``yaml``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Dict
+
+# The seven nuScenes tracking classes, 1-indexed; one-hot uses (idx - 1).
+TRACKING_CLASSES: Dict[str, int] = {
+    "car": 1,
+    "truck": 2,
+    "bus": 3,
+    "trailer": 4,
+    "pedestrian": 5,
+    "motorcycle": 6,
+    "bicycle": 7,
+}
+
+NUM_CLASSES = len(TRACKING_CLASSES)
+
+TRACKING_CLASS_NAMES: Dict[int, str] = {v: k for k, v in TRACKING_CLASSES.items()}
+
+# Per-class edge-score thresholds at inference, also the cluster-join
+# thresholds.
+DEFAULT_EDGE_SCORE_THRESHOLDS: Dict[str, float] = {
+    "bicycle": 0.1,
+    "bus": 0.005,
+    "car": 0.02,
+    "motorcycle": 0.03,
+    "pedestrian": 0.025,
+    "trailer": 0.04,
+    "truck": 0.005,
+}
+
+# Per-class relative train-split edge frequencies for the class-balanced
+# edge weights (graphs/weights.py).
+REL_FREQ_TRAIN: Dict[str, float] = {
+    "bicycle": 0.07455396870915335,
+    "bus": 0.013947840246335299,
+    "car": 0.44736907722651076,
+    "motorcycle": 0.055813302136334404,
+    "pedestrian": 0.1980141158741746,
+    "trailer": 0.06407160593555014,
+    "truck": 0.14623008987194142,
+}
+
+
+@dataclass
+class GraphConstructionConfig:
+    """Window-graph construction (the field ``graphs/build.py`` reads)."""
+
+    top_knn_nodes: int = 40  # candidate predecessors per node
+
+
+@dataclass
+class PredictConfig:
+    """Inference settings (the fields ``infer/predict.py`` reads)."""
+
+    # windows scored per device batch
+    windows_per_batch: int = 8
+    edge_score_thresholds: Dict[str, float] = field(
+        default_factory=lambda: dict(DEFAULT_EDGE_SCORE_THRESHOLDS)
+    )

@@ -1,0 +1,359 @@
+"""Batched window scoring and cross-window edge-score aggregation
+(counterpart of ``batch3dmot_tpu/infer/predict.py``).
+
+  * :class:`SceneEncodedScorer` encodes every detection of a scene group
+    once, then scores the windows in batches per shape bucket: each window
+    gathers its nodes' embeddings by detection index, the model runs the
+    pre-message-passing stage, and the fused message-passing kernel the
+    loop and the edge classifier (its plain version on the CPU).
+  * Scores of an edge seen by several overlapping windows are averaged,
+    thresholded per class and greedily rounded to at most one best
+    incoming and one best outgoing edge per node.
+
+PyTorch runs eagerly, so the JAX package's program-shape pinning
+(``group_pad``, ``num_batches``, fill windows) has no counterpart: a batch
+holds only real windows.
+"""
+
+from __future__ import annotations
+
+from collections import defaultdict
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from batch3dmot_tpu_torch import resolve_device
+from batch3dmot_tpu_torch.config import (
+    DEFAULT_EDGE_SCORE_THRESHOLDS,
+    TRACKING_CLASSES,
+    PredictConfig,
+)
+from batch3dmot_tpu_torch.data.types import SceneDetections, WindowGraphArrays
+from batch3dmot_tpu_torch.graph import (
+    DEFAULT_BUCKETS,
+    IMG_SHAPE,
+    LIDAR_SHAPE,
+    RADAR_SHAPE,
+    batch_graphs,
+    pad_graph,
+    pick_bucket,
+)
+from batch3dmot_tpu_torch.models.gnn import PoseGNN
+from batch3dmot_tpu_torch.ops.fused_mp import (
+    fused_logits_pose,
+    fused_scores_from_encodings,
+    fused_scores_full,
+)
+from batch3dmot_tpu_torch.train.data import to_padded
+
+
+def _pad_detection_count(m: int) -> int:
+    """Padded per-scene detection count for the encode-once batch:
+    multiples of 64 up to 512, of 256 above."""
+    if m <= 512:
+        return max(64, -(-m // 64) * 64)
+    return -(-m // 256) * 256
+
+
+def _prepare(model: torch.nn.Module, device) -> Tuple[torch.nn.Module, torch.device]:
+    device = resolve_device(device)
+    if device.type == "cuda":
+        # The encoders are held to float32: cuDNN runs f32 convolutions in
+        # TF32 (about three decimal digits) unless told otherwise, and f32
+        # matmuls must stay off TF32 too (PyTorch's default, kept here).
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    return model.to(device).eval(), device
+
+
+def make_scorer(model, device=None) -> Callable:
+    """A batched window scorer: PaddedGraph[B, ...] (with modalities) ->
+    scores [B, E] on the device. The frozen encoders run per window node,
+    then the fused kernel; PoseGNN logits go through a sigmoid."""
+    model, device = _prepare(model, device)
+    pose = isinstance(model, PoseGNN)
+
+    def run(batch):
+        with torch.inference_mode():
+            batch = batch.to(device)
+            if pose:
+                return torch.sigmoid(fused_logits_pose(model, batch))
+            return fused_scores_full(model, batch)
+
+    return run
+
+
+class SceneEncodedScorer:
+    """Encode-once inference for the multimodal GNN."""
+
+    def __init__(self, model, device=None):
+        self.model, self.device = _prepare(model, device)
+
+    def _encode(self, img, lidar, radar):
+        lp = lidar.sum(dim=(1, 2)) != 0
+        rp = radar.sum(dim=(1, 2)) != 0
+        x_img, pn, rn = self.model.encode_frozen(img, lidar, radar)
+        return x_img, pn, rn, lp, rp
+
+    def _forward(self, batch, det_index, enc):
+        x_img, pn, rn, lp, rp = (t[det_index] for t in enc)
+        return fused_scores_from_encodings(self.model, batch, x_img, pn, rn, lp, rp)
+
+    def dispatch_scenes(
+        self,
+        scenes: Sequence[SceneDetections],
+        windows_list: Sequence[Sequence[WindowGraphArrays]],
+        windows_per_batch: int = 8,
+        buckets=DEFAULT_BUCKETS,
+        m_pad: Optional[int] = None,
+    ):
+        """Upload and enqueue the work of a scene group without waiting for
+        it: one encode of every detection (scene g's rows at ``g * m_pad``),
+        then one forward per window batch, pooling the scenes' windows per
+        bucket. Returns a pending object for :meth:`finalize_scenes`."""
+        if m_pad is None:
+            m_pad = max(_pad_detection_count(s.num_detections) for s in scenes)
+        for s in scenes:
+            if m_pad < s.num_detections:
+                raise ValueError(f"m_pad {m_pad} < {s.num_detections} detections")
+        g_count = len(scenes)
+
+        def padg(get, shape_tail):
+            dts = {get(s).dtype for s in scenes if get(s) is not None} or {
+                np.dtype(np.float32)
+            }
+            if len(dts) != 1:
+                raise TypeError(f"mixed modality dtypes in group: {dts}")
+            out = np.zeros((g_count * m_pad, *shape_tail), dts.pop())
+            for g, s in enumerate(scenes):
+                a = get(s)
+                if a is not None and s.num_detections:
+                    out[g * m_pad: g * m_pad + s.num_detections] = a
+            return torch.from_numpy(out).to(self.device)
+
+        results: List[List[Optional[np.ndarray]]] = [
+            [None] * len(ws) for ws in windows_list
+        ]
+        by_bucket: Dict[Tuple[int, int], List[Tuple[int, int]]] = defaultdict(list)
+        for g, ws in enumerate(windows_list):
+            for i, w in enumerate(ws):
+                if w.num_nodes == 0 or w.num_edges == 0:
+                    results[g][i] = np.zeros((0,), np.float32)
+                    continue
+                by_bucket[pick_bucket(w.num_nodes, w.num_edges, buckets)].append((g, i))
+
+        fetches = []
+        with torch.inference_mode():
+            enc = self._encode(
+                padg(lambda s: s.img, IMG_SHAPE),
+                padg(lambda s: s.lidar, LIDAR_SHAPE),
+                padg(lambda s: s.radar, RADAR_SHAPE),
+            )
+            for (mn, me), idxs in by_bucket.items():
+                for lo in range(0, len(idxs), windows_per_batch):
+                    chunk = idxs[lo: lo + windows_per_batch]
+                    graphs, dets = [], []
+                    for g, i in chunk:
+                        w = windows_list[g][i]
+                        # modality arrays left out: embeddings come from the
+                        # scene-level encode
+                        graphs.append(pad_graph(
+                            pose=w.pose, edge_src=w.edge_src, edge_dst=w.edge_dst,
+                            edge_attr=w.edge_attr, node_time=w.node_time,
+                            node_class=w.node_class, max_nodes=mn, max_edges=me,
+                            edge_label=w.edge_label, edge_weight=w.edge_weight,
+                            include_modalities=False,
+                        ))
+                        di = np.zeros(mn, np.int64)
+                        di[: w.num_nodes] = w.det_index + g * m_pad
+                        dets.append(di)
+                    batch = batch_graphs(graphs).to(self.device)
+                    det_index = torch.from_numpy(np.stack(dets)).to(self.device)
+                    fetches.append((chunk, self._forward(batch, det_index, enc)))
+        return results, fetches, windows_list
+
+    def finalize_scenes(self, pending) -> List[List[np.ndarray]]:
+        """Fetch and slice a :meth:`dispatch_scenes` result: per-scene lists
+        of per-window score arrays [num_edges]."""
+        results, fetches, windows_list = pending
+        for chunk, dev in fetches:
+            scores = dev.cpu().numpy()
+            for slot, (g, i) in enumerate(chunk):
+                results[g][i] = scores[slot, : windows_list[g][i].num_edges]
+        return results  # type: ignore[return-value]
+
+    def score_scenes(
+        self,
+        scenes: Sequence[SceneDetections],
+        windows_list: Sequence[Sequence[WindowGraphArrays]],
+        windows_per_batch: int = 8,
+        buckets=DEFAULT_BUCKETS,
+        m_pad: Optional[int] = None,
+    ) -> List[List[np.ndarray]]:
+        """:meth:`dispatch_scenes` + :meth:`finalize_scenes` in one call."""
+        return self.finalize_scenes(
+            self.dispatch_scenes(scenes, windows_list, windows_per_batch, buckets, m_pad)
+        )
+
+    def score_scene(
+        self,
+        scene: SceneDetections,
+        windows: Sequence[WindowGraphArrays],
+        windows_per_batch: int = 8,
+        buckets=DEFAULT_BUCKETS,
+        m_pad: Optional[int] = None,
+    ) -> List[np.ndarray]:
+        """Per-window scores of one scene."""
+        return self.score_scenes([scene], [windows], windows_per_batch, buckets, m_pad)[0]
+
+
+def score_windows(
+    scorer: Callable,
+    windows: Sequence[WindowGraphArrays],
+    windows_per_batch: int = 8,
+    buckets=DEFAULT_BUCKETS,
+) -> List[np.ndarray]:
+    """Score all windows with a :func:`make_scorer` scorer; returns
+    per-window [num_edges] arrays. Windows are grouped by bucket and
+    stacked ``windows_per_batch`` at a time; empty windows get empty
+    arrays."""
+    results: List[Optional[np.ndarray]] = [None] * len(windows)
+    by_bucket: Dict[Tuple[int, int], List[int]] = defaultdict(list)
+    for i, w in enumerate(windows):
+        if w.num_nodes == 0 or w.num_edges == 0:
+            results[i] = np.zeros((0,), np.float32)
+            continue
+        by_bucket[pick_bucket(w.num_nodes, w.num_edges, buckets)].append(i)
+
+    for (mn, me), idxs in by_bucket.items():
+        for lo in range(0, len(idxs), windows_per_batch):
+            chunk = idxs[lo: lo + windows_per_batch]
+            graphs = [to_padded(windows[i], mn, me) for i in chunk]
+            scores = scorer(batch_graphs(graphs)).cpu().numpy()
+            for slot, i in enumerate(chunk):
+                results[i] = scores[slot, : windows[i].num_edges]
+    return results  # type: ignore[return-value]
+
+
+def average_edge_scores_raw(
+    src: np.ndarray, dst: np.ndarray, scores: np.ndarray
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Unique (src, dst) pairs and the mean score of each."""
+    if len(scores) == 0:
+        z = np.zeros(0, np.int64)
+        return z, z, np.zeros(0, np.float64)
+    key = src.astype(np.int64) << 32 | dst.astype(np.int64)
+    uniq, inv = np.unique(key, return_inverse=True)
+    sums = np.bincount(inv, weights=scores.astype(np.float64))
+    counts = np.bincount(inv)
+    means = sums / counts
+    return (uniq >> 32), (uniq & 0xFFFFFFFF), means
+
+
+def threshold_mask(
+    src: np.ndarray,
+    means: np.ndarray,
+    class_id: np.ndarray,
+    thresholds: Optional[Dict[str, float]] = None,
+) -> np.ndarray:
+    """Keep-mask over unique edges: the mean score clears the threshold of
+    the source node's class."""
+    thresholds = thresholds or DEFAULT_EDGE_SCORE_THRESHOLDS
+    thr_by_id = np.zeros(max(TRACKING_CLASSES.values()) + 1)
+    for name, cid in TRACKING_CLASSES.items():
+        thr_by_id[cid] = thresholds[name]
+    return means > thr_by_id[class_id[src]]
+
+
+def greedy_round_arrays(
+    src: np.ndarray, dst: np.ndarray, scores: np.ndarray
+) -> np.ndarray:
+    """Mask keeping, per node, its best-scoring outgoing and incoming edge;
+    ties go to the first edge in input order."""
+    k = len(scores)
+    keep = np.zeros(k, bool)
+    if k == 0:
+        return keep
+    order = np.argsort(-scores, kind="stable")
+    for nodes in (src, dst):
+        n_sorted = nodes[order]
+        _, first = np.unique(n_sorted, return_index=True)
+        keep[order[first]] = True
+    return keep
+
+
+def aggregate_scene_edges(
+    scene: SceneDetections,
+    windows: Sequence[WindowGraphArrays],
+    scores: Sequence[np.ndarray],
+    thresholds: Optional[Dict[str, float]] = None,
+):
+    """Cross-window averaging -> per-class thresholding -> greedy rounding
+    for one scene's window scores. Returns (pred_edges, avg_scores):
+    pred_edges is [((det_j, det_i), score), ...] in scene detection
+    indices, avg_scores maps every scored pair to its mean."""
+    srcs, dsts, vals = [], [], []
+    for w, s in zip(windows, scores):
+        if len(s) == 0:
+            continue
+        srcs.append(w.det_index[w.edge_src])
+        dsts.append(w.det_index[w.edge_dst])
+        vals.append(np.asarray(s))
+    if not srcs:
+        return [], {}
+    usrc, udst, means = average_edge_scores_raw(
+        np.concatenate(srcs), np.concatenate(dsts), np.concatenate(vals)
+    )
+    keep = threshold_mask(usrc, means, scene.class_id, thresholds)
+    ks, kd, kv = usrc[keep], udst[keep], means[keep]
+    sel = greedy_round_arrays(ks, kd, kv)
+    pred_edges = [
+        ((int(a), int(b)), float(v))
+        for a, b, v in zip(ks[sel].tolist(), kd[sel].tolist(), kv[sel].tolist())
+    ]
+    avg = {
+        (int(a), int(b)): float(v)
+        for a, b, v in zip(usrc.tolist(), udst.tolist(), means.tolist())
+    }
+    return pred_edges, avg
+
+
+def predict_scene(
+    scorer,
+    scene: SceneDetections,
+    windows: Sequence[WindowGraphArrays],
+    cfg: Optional[PredictConfig] = None,
+    buckets=DEFAULT_BUCKETS,
+    m_pad: Optional[int] = None,
+):
+    """Per-scene edge pipeline: batched scoring (a SceneEncodedScorer or a
+    :func:`make_scorer` scorer) -> averaging -> thresholds -> greedy
+    rounding. Returns (pred_edges, avg_scores)."""
+    cfg = cfg or PredictConfig()
+    if isinstance(scorer, SceneEncodedScorer):
+        scores = scorer.score_scene(scene, windows, cfg.windows_per_batch, buckets, m_pad)
+    else:
+        scores = score_windows(scorer, windows, cfg.windows_per_batch, buckets)
+    return aggregate_scene_edges(scene, windows, scores, cfg.edge_score_thresholds)
+
+
+def predict_scenes(
+    scorer: SceneEncodedScorer,
+    items: Sequence[Tuple[SceneDetections, Sequence[WindowGraphArrays]]],
+    cfg: Optional[PredictConfig] = None,
+    buckets=DEFAULT_BUCKETS,
+    m_pad: Optional[int] = None,
+) -> List[Tuple[list, dict]]:
+    """Grouped :func:`predict_scene` over a scene batch: one encode of the
+    group, pooled window batches, then per-scene aggregation. Returns
+    ``[(pred_edges, avg_scores), ...]`` in input order."""
+    cfg = cfg or PredictConfig()
+    all_scores = scorer.score_scenes(
+        [s for s, _ in items], [ws for _, ws in items],
+        cfg.windows_per_batch, buckets, m_pad,
+    )
+    return [
+        aggregate_scene_edges(scene, windows, scores, cfg.edge_score_thresholds)
+        for (scene, windows), scores in zip(items, all_scores)
+    ]

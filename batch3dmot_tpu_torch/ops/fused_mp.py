@@ -1,0 +1,363 @@
+"""Fused causal message passing + edge classifier: the Hopper kernel and its
+plain PyTorch version (counterpart of ``batch3dmot_tpu/ops/pallas_mp.py``).
+
+The CUDA kernel (``csrc/fused_mp.cu``) replaces the Pallas TPU kernels
+``_mp_kernel``, ``_mp_kernel_tiled`` and ``_mp_kernel_tiled_hbm`` and covers
+every bucket of ``graph.DEFAULT_BUCKETS``; its source note says what bounds
+it and how the design answers that. :func:`fused_mp_scores` launches it for
+CUDA tensors (or raises) and runs :func:`fused_mp_scores_plain`, the layer
+loop with ``index_add_``, for CPU tensors.
+
+Weight contract (``extract_mp_params``), the same as the JAX package's:
+every first layer is split by rows along its concatenated input,
+  edge_update in  = [x_i, x_j, edge_attr, att_edge_attr?]
+  future_msgs in  = [x_i, updated_edge, initial_x_i]
+  past_msgs  in   = [x_j, updated_edge, initial_x_j]
+  combine    in   = [agg_past, agg_future]
+with weights [in, out] and biases [1, out].
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from batch3dmot_tpu_torch.ops import cuda_build
+
+# ---------------------------------------------------------------------------
+# Weights
+# ---------------------------------------------------------------------------
+
+
+def _split_rows(w, sizes):
+    out = []
+    lo = 0
+    for s in sizes:
+        out.append(w[lo: lo + s])
+        lo += s
+    return tuple(out)
+
+
+def _chain(seq: nn.Sequential):
+    lins = [m for m in seq if isinstance(m, nn.Linear)]
+    return (
+        [m.weight.detach().t() for m in lins],
+        [m.bias.detach()[None, :] for m in lins],
+    )
+
+
+def extract_mp_params(model: nn.Module, with_attention: bool, node_dim: int,
+                      edge_dim: int) -> Tuple[tuple, dict]:
+    """Flatten a model's message-passing and edge-classifier weights into the
+    kernel's weight tuple ([in, out] weights, [1, out] biases) and meta."""
+    mp = model.message_passing
+    eu_w, eu_b = _chain(mp.edge_update)
+    fut_w, fut_b = _chain(mp.create_future_msgs)
+    past_w, past_b = _chain(mp.create_past_msgs)
+    comb_w, comb_b = _chain(mp.combine_future_past)
+    cls_w, cls_b = _chain(model.edge_classifier)
+
+    eu_sizes = [node_dim, node_dim, edge_dim] + ([edge_dim] if with_attention else [])
+    eu0 = _split_rows(eu_w[0], eu_sizes)
+    msg_sizes = [node_dim, edge_dim, node_dim]
+    fut0 = _split_rows(fut_w[0], msg_sizes)
+    past0 = _split_rows(past_w[0], msg_sizes)
+    m = comb_w[0].shape[0] // 2
+    comb0 = _split_rows(comb_w[0], [m, m])
+
+    flat = (
+        *eu0, *eu_w[1:], *eu_b,
+        *fut0, *fut_w[1:], *fut_b,
+        *past0, *past_w[1:], *past_b,
+        *comb0, *comb_w[1:], *comb_b,
+        *cls_w, *cls_b,
+    )
+    meta = dict(
+        n_eu0=len(eu0), n_eu=len(eu_w) - 1, n_eub=len(eu_b),
+        n_fut=len(fut_w) - 1, n_futb=len(fut_b),
+        n_past=len(past_w) - 1, n_pastb=len(past_b),
+        n_comb=len(comb_w) - 1, n_combb=len(comb_b),
+        n_cls=len(cls_w), n_clsb=len(cls_b),
+    )
+    return flat, meta
+
+
+def _unpack(meta, ws):
+    it = iter(ws)
+    take = lambda k: tuple(next(it) for _ in range(k))  # noqa: E731
+    eu0 = take(meta["n_eu0"])
+    eu_rest = take(meta["n_eu"])
+    eu_b = take(meta["n_eub"])
+    fut0 = take(3)
+    fut_rest = take(meta["n_fut"])
+    fut_b = take(meta["n_futb"])
+    past0 = take(3)
+    past_rest = take(meta["n_past"])
+    past_b = take(meta["n_pastb"])
+    comb0 = take(2)
+    comb_rest = take(meta["n_comb"])
+    comb_b = take(meta["n_combb"])
+    cls_w = take(meta["n_cls"])
+    cls_b = take(meta["n_clsb"])
+    return (eu0, eu_rest, eu_b, fut0, fut_rest, fut_b, past0, past_rest,
+            past_b, comb0, comb_rest, comb_b, cls_w, cls_b)
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch version
+# ---------------------------------------------------------------------------
+
+
+def _mlp_tail(h, rest, biases):
+    """Finish an MLP whose first product (bias not yet added) is h: relu
+    after every layer but the last."""
+    h = torch.relu(h + biases[0])
+    for k, (w, b) in enumerate(zip(rest, biases[1:])):
+        h = h @ w + b
+        if k < len(rest) - 1:
+            h = torch.relu(h)
+    return h
+
+
+def fused_mp_scores_plain(x0, e0, att, src, dst, edge_mask, flat_weights,
+                          meta, depth, logits=False) -> torch.Tensor:
+    """The layer loop the kernel computes, in plain PyTorch. A masked edge
+    gathers zero rows (as the TPU kernels' one-hot rows) and is left out
+    of both sums; its score is still defined."""
+    (eu0, eu_rest, eu_b, fut0, fut_rest, fut_b, past0, past_rest, past_b,
+     comb0, comb_rest, comb_b, cls_w, cls_b) = _unpack(meta, flat_weights)
+    b, n, _ = x0.shape
+    keep = edge_mask.reshape(-1)
+    offs = torch.arange(b, device=x0.device)[:, None] * n
+    src_f = (src.long() + offs).reshape(-1)
+    dst_f = (dst.long() + offs).reshape(-1)
+    mask_f = edge_mask[..., None].to(x0.dtype)
+
+    def gather(x, idx):
+        return x.reshape(b * n, -1)[idx].reshape(*src.shape, -1) * mask_f
+
+    def scatter(v, idx):
+        out = torch.zeros(b * n, v.shape[-1], dtype=v.dtype, device=v.device)
+        out.index_add_(0, idx[keep], v.reshape(-1, v.shape[-1])[keep])
+        return out.reshape(b, n, -1)
+
+    x, e = x0, e0
+    init_i, init_j = gather(x0, dst_f), gather(x0, src_f)
+    for _ in range(depth):
+        x_i, x_j = gather(x, dst_f), gather(x, src_f)
+        h = x_i @ eu0[0] + x_j @ eu0[1] + e @ eu0[2]
+        if att is not None:
+            h = h + att @ eu0[3]
+        ue = _mlp_tail(h, eu_rest, eu_b)
+        f = _mlp_tail(x_i @ fut0[0] + ue @ fut0[1] + init_i @ fut0[2],
+                      fut_rest, fut_b)
+        p = _mlp_tail(x_j @ past0[0] + ue @ past0[1] + init_j @ past0[2],
+                      past_rest, past_b)
+        agg_p, agg_f = scatter(p, dst_f), scatter(f, src_f)
+        x = _mlp_tail(agg_p @ comb0[0] + agg_f @ comb0[1], comb_rest, comb_b)
+        e = ue
+    h = e
+    for i, (w, bias) in enumerate(zip(cls_w, cls_b)):
+        h = h @ w + bias
+        if i < len(cls_w) - 1:
+            h = torch.relu(h)
+    out = h[..., 0]
+    return out if logits else torch.sigmoid(out)
+
+
+# ---------------------------------------------------------------------------
+# Hopper kernel
+# ---------------------------------------------------------------------------
+
+
+def pack_mp_weights(flat_weights, meta, node_dim: int, edge_dim: int,
+                    with_attention: bool):
+    """The kernel's weight blob: one contiguous f32 tensor, the float offset
+    (a multiple of 4) of each of its 29 arrays (``Params`` order in
+    ``csrc/fused_mp.cu``) and the widths. The x parts of the first layers
+    and the x0 parts of the message layers become one [node_dim, PW] node
+    projection."""
+    shape = {k: meta[k] for k in ("n_eu", "n_fut", "n_past", "n_comb", "n_cls")}
+    if shape != dict(n_eu=2, n_fut=1, n_past=1, n_comb=2, n_cls=4):
+        raise ValueError(f"fused MP kernel: unsupported layer counts {shape}")
+    (eu0, eu_rest, eu_b, fut0, fut_rest, fut_b, past0, past_rest, past_b,
+     comb0, comb_rest, comb_b, cls_w, cls_b) = _unpack(meta, flat_weights)
+    w_ea = torch.cat(eu0[2:], dim=0)  # rows of [edge_attr, att_edge_attr?]
+    w_p = torch.cat([eu0[0], eu0[1], fut0[0], past0[0], fut0[2], past0[2]], dim=1)
+    arrays = [
+        w_ea, eu_b[0], eu_rest[0], eu_b[1], eu_rest[1], eu_b[2],
+        fut0[1], fut_b[0], fut_rest[0], fut_b[1],
+        past0[1], past_b[0], past_rest[0], past_b[1],
+        torch.cat(comb0, dim=0), comb_b[0], comb_rest[0], comb_b[1],
+        comb_rest[1], comb_b[2],
+        w_p,
+        cls_w[0], cls_b[0], cls_w[1], cls_b[1], cls_w[2], cls_b[2],
+        cls_w[3], cls_b[3],
+    ]
+    # every array starts on a 16-byte boundary (the kernel copies weights
+    # in 16-byte pieces)
+    pieces, woff, pos = [], [], 0
+    for a in arrays:
+        a = a.reshape(-1).float()
+        pad = -a.numel() % 4
+        pieces += [a, a.new_zeros(pad)]
+        woff.append(pos)
+        pos += a.numel() + pad
+    woff = np.array(woff, np.int64)
+    blob = torch.cat(pieces)
+    widths = dict(
+        H1=eu_rest[0].shape[0], H2=eu_rest[1].shape[0],
+        M1=fut_rest[0].shape[0], M=fut_rest[0].shape[1],
+        C1=comb_rest[0].shape[0], C2=comb_rest[1].shape[0],
+        L1=cls_w[1].shape[0], L2=cls_w[2].shape[0], L3=cls_w[3].shape[0],
+    )
+    return blob, woff, widths
+
+
+def edge_csr(idx: torch.Tensor, num_nodes: int):
+    """Per-window CSR of edges by node for idx [B, E] (-1 = masked edge):
+    offsets [B * (N + 1) + 1] and the global edge ids (b * E + e) of each
+    node's edges in edge order. Masked edges land in a sentinel row N that
+    no node reads."""
+    b, e = idx.shape
+    key = torch.where(idx >= 0, idx.long(), num_nodes)
+    key = (key + torch.arange(b, device=idx.device)[:, None] * (num_nodes + 1))
+    key = key.reshape(-1)
+    perm = torch.argsort(key, stable=True).to(torch.int32)
+    counts = torch.bincount(key, minlength=b * (num_nodes + 1))
+    off = torch.zeros(b * (num_nodes + 1) + 1, dtype=torch.int32, device=idx.device)
+    off[1:] = torch.cumsum(counts, 0).to(torch.int32)
+    return off, perm
+
+
+def _ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
+    return ctypes.c_void_p(0 if t is None else t.data_ptr())
+
+
+def _check(name, t, dtype, shape):
+    if t.device.type != "cuda" or t.dtype != dtype or tuple(t.shape) != tuple(shape):
+        raise ValueError(
+            f"fused MP kernel: {name} must be {dtype} {tuple(shape)} on cuda, "
+            f"got {t.dtype} {tuple(t.shape)} on {t.device}"
+        )
+    if not t.is_contiguous():
+        raise ValueError(f"fused MP kernel: {name} must be contiguous")
+
+
+def fused_mp_scores_cuda(x0, e0, att, src, dst, edge_mask, flat_weights, meta,
+                         depth, logits=False) -> torch.Tensor:
+    """Launch the Hopper kernel on the current stream; scores [B, E]."""
+    b, n, nd = x0.shape
+    e, ed = e0.shape[1], e0.shape[2]
+    with_att = att is not None
+    _check("x0", x0, torch.float32, (b, n, nd))
+    _check("e0", e0, torch.float32, (b, e, ed))
+    if with_att:
+        _check("att", att, torch.float32, (b, e, ed))
+    for name, t in (("src", src), ("dst", dst), ("edge_mask", edge_mask)):
+        if t.device != x0.device or tuple(t.shape) != (b, e):
+            raise ValueError(f"fused MP kernel: {name} must be [{b}, {e}] on {x0.device}")
+
+    blob, woff, w = pack_mp_weights(flat_weights, meta, nd, ed, with_att)
+    blob = blob.to(x0.device)
+    neg = torch.full_like(src, -1, dtype=torch.int32)
+    src_m = torch.where(edge_mask, src.to(torch.int32), neg).contiguous()
+    dst_m = torch.where(edge_mask, dst.to(torch.int32), neg).contiguous()
+    doff, dperm = edge_csr(dst_m, n)
+    soff, sperm = edge_csr(src_m, n)
+
+    pw = 2 * w["H1"] + 4 * w["M1"]
+    e_state = e0.clone()
+    npb = torch.empty(b, n, pw, dtype=torch.float32, device=x0.device)
+    pbuf = torch.empty(b, e, w["M"], dtype=torch.float32, device=x0.device)
+    fbuf = torch.empty_like(pbuf)
+    out = torch.empty(b, e, dtype=torch.float32, device=x0.device)
+    dims = np.array(
+        [b, n, e, nd, ed, int(with_att), depth, int(logits),
+         w["H1"], w["H2"], w["M1"], w["M"], w["C1"], w["C2"],
+         w["L1"], w["L2"], w["L3"]],
+        np.int32,
+    )
+    stream = torch.cuda.current_stream(x0.device).cuda_stream
+    lib = cuda_build.load("fused_mp")
+    err = lib.fused_mp_forward(
+        ctypes.c_void_p(dims.ctypes.data), ctypes.c_void_p(woff.ctypes.data),
+        _ptr(blob), _ptr(x0), _ptr(e_state), _ptr(att), _ptr(src_m),
+        _ptr(dst_m), _ptr(doff), _ptr(dperm), _ptr(soff), _ptr(sperm),
+        _ptr(npb), _ptr(pbuf), _ptr(fbuf), _ptr(out), ctypes.c_void_p(stream),
+    )
+    if err != 0:
+        raise RuntimeError(f"fused MP kernel launch failed: CUDA error {err}")
+    fused_mp_scores.launches += 1
+    return out
+
+
+def fused_mp_scores(x0, e0, att, src, dst, edge_mask, flat_weights, meta,
+                    depth, logits=False) -> torch.Tensor:
+    """Scores [B, E] (sigmoid unless ``logits``) of the depth-``depth``
+    message-passing loop and the edge classifier.
+
+    x0 [B, N, node_dim], e0 and att [B, E, edge_dim] (att may be None),
+    src/dst [B, E] int, edge_mask [B, E] bool. CUDA tensors go through the
+    Hopper kernel (a launch failure raises); CPU tensors through
+    :func:`fused_mp_scores_plain`. ``fused_mp_scores.launches`` counts the
+    kernel runs."""
+    if x0.device.type == "cuda":
+        return fused_mp_scores_cuda(
+            x0, e0, att, src, dst, edge_mask, flat_weights, meta, depth, logits
+        )
+    if x0.device.type != "cpu":
+        raise ValueError(f"fused MP: unsupported device {x0.device}")
+    return fused_mp_scores_plain(
+        x0, e0, att, src, dst, edge_mask, flat_weights, meta, depth, logits
+    )
+
+
+fused_mp_scores.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Model-level entry points
+# ---------------------------------------------------------------------------
+
+
+def fused_scores_from_encodings(model, batch, x_img, pn, rn, lp, rp) -> torch.Tensor:
+    """Batched ``forward_from_encodings`` scores of a MultimodalGNN: the
+    module computes the pre-message-passing stage, the fused kernel (or its
+    plain version on the CPU) the loop and the classifier."""
+    x0, e0, att, _ = model.pre_message_passing(batch, x_img, pn, rn, lp, rp)
+    # the message passing always consumes att_edge_attr; use_attention only
+    # changes how it is computed
+    flat, meta = extract_mp_params(model, True, model.node_dim, model.edge_dim)
+    return fused_mp_scores(
+        x0, e0, att, batch.edge_src, batch.edge_dst, batch.edge_mask,
+        flat, meta, model.depth,
+    )
+
+
+def fused_scores_full(model, batch) -> torch.Tensor:
+    """Fused replacement of the batched full MultimodalGNN forward: the
+    frozen encoders run per window node, then the kernel."""
+    b, n = batch.pose.shape[:2]
+    flat = lambda t: t.reshape(b * n, *t.shape[2:])  # noqa: E731
+    xi, pn, rn = model.encode_frozen(flat(batch.img), flat(batch.lidar), flat(batch.radar))
+    lp = batch.lidar.sum(dim=(-2, -1)) != 0
+    rp = batch.radar.sum(dim=(-2, -1)) != 0
+    unflat = lambda t: t.reshape(b, n, -1)  # noqa: E731
+    return fused_scores_from_encodings(
+        model, batch, unflat(xi), unflat(pn), unflat(rn), lp, rp
+    )
+
+
+def fused_logits_pose(model, batch) -> torch.Tensor:
+    """Fused replacement of the batched PoseGNN forward: LOGITS [B, E]."""
+    x0, e0 = model.pre_message_passing(batch)
+    flat, meta = extract_mp_params(model, False, model.node_dim, model.edge_dim)
+    return fused_mp_scores(
+        x0, e0, None, batch.edge_src, batch.edge_dst, batch.edge_mask,
+        flat, meta, model.depth, logits=True,
+    )

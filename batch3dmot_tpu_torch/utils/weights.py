@@ -1,0 +1,154 @@
+"""Carry the JAX package's weights into the port's modules.
+
+:func:`load_flax_variables` takes flax ``variables`` as nested numpy dicts
+(``params`` and, for the multimodal models, ``batch_stats``) and loads them
+into a port ``MultimodalGNN`` (any modality subset, with or without the
+attention blocks) or ``PoseGNN``. It is the inverse of
+``batch3dmot_tpu/utils/torch_import.py``: the port's parameters carry the
+upstream PyTorch names, so ``import_mm_gnn(port state dict)`` gives back
+the tree loaded here.
+
+Layouts: a flax Dense kernel [in, out] is an ``nn.Linear`` weight [out, in];
+a point conv's Dense kernel becomes the upstream ``Conv1d`` weight
+[out, in, 1]; a Conv kernel HWIO becomes OIHW; BatchNorm scale/bias and
+mean/var become weight/bias and running_mean/running_var. The single-token
+attention keeps ``in_proj_weight`` whole [3D, D]: the value slice is
+filled, the query and key slices (which have no effect) are zero.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+from torch import nn
+
+
+def _f32(x) -> np.ndarray:
+    return np.asarray(x, dtype=np.float32)
+
+
+def _linear(out: dict, key: str, p: dict) -> None:
+    out[f"{key}.weight"] = _f32(p["kernel"]).T
+    if "bias" in p:
+        out[f"{key}.bias"] = _f32(p["bias"])
+
+
+def _point_conv(out: dict, key: str, p: dict) -> None:
+    out[f"{key}.weight"] = _f32(p["kernel"]).T[:, :, None]
+    out[f"{key}.bias"] = _f32(p["bias"])
+
+
+def _conv2d(out: dict, key: str, p: dict) -> None:
+    out[f"{key}.weight"] = _f32(p["kernel"]).transpose(3, 2, 0, 1)
+    if "bias" in p:
+        out[f"{key}.bias"] = _f32(p["bias"])
+
+
+def _bn(out: dict, key: str, p: dict, s: dict) -> None:
+    out[f"{key}.weight"] = _f32(p["scale"])
+    out[f"{key}.bias"] = _f32(p["bias"])
+    out[f"{key}.running_mean"] = _f32(s["mean"])
+    out[f"{key}.running_var"] = _f32(s["var"])
+
+
+def _mlp(out: dict, key: str, p: dict) -> None:
+    i = 0
+    while f"dense_{i}" in p:
+        _linear(out, f"{key}.{2 * i}", p[f"dense_{i}"])
+        i += 1
+
+
+def _attention(out: dict, key: str, p: dict) -> None:
+    v_w = _f32(p["v_proj"]["kernel"]).T
+    d = v_w.shape[0]
+    out[f"{key}.in_proj_weight"] = np.concatenate([np.zeros((2 * d, d), np.float32), v_w])
+    out[f"{key}.in_proj_bias"] = np.concatenate(
+        [np.zeros(2 * d, np.float32), _f32(p["v_proj"]["bias"])]
+    )
+    _linear(out, f"{key}.out_proj", p["out_proj"])
+
+
+def _resnet(out: dict, p: dict, s: dict) -> None:
+    _conv2d(out, "resnet.conv", p["stem"])
+    for i in (1, 2, 3):
+        bp, bs, key = p[f"block{i}"], s[f"block{i}"], f"resnet.res_block{i}"
+        _conv2d(out, f"{key}.conv1", bp["conv1"])
+        _bn(out, f"{key}.bn1", bp["bn1"], bs["bn1"])
+        _conv2d(out, f"{key}.conv2", bp["conv2"])
+        _bn(out, f"{key}.bn2", bp["bn2"], bs["bn2"])
+        _conv2d(out, f"{key}.downsample.0", bp["down_conv"])
+        _bn(out, f"{key}.downsample.1", bp["down_bn"], bs["down_bn"])
+
+
+def _point_feat(out: dict, key: str, p: dict, s: dict) -> None:
+    for i in range(3):
+        _point_conv(out, f"{key}.conv{i + 1}", p[f"mlp_{i}"])
+        _bn(out, f"{key}.bn{i + 1}", p[f"bn_{i}"], s[f"bn_{i}"])
+
+
+def _feat_head(out: dict, key: str, p: dict, s: dict) -> None:
+    _linear(out, f"{key}.fc1", p["fc1"])
+    _bn(out, f"{key}.bn1", p["bn1"], s["bn1"])
+    _linear(out, f"{key}.fc2", p["fc2"])
+    _bn(out, f"{key}.bn2", p["bn2"], s["bn2"])
+
+
+def _pointnet(out: dict, p: dict, s: dict) -> None:
+    stn_p, stn_s = p["feat"]["stn"], s["feat"]["stn"]
+    _point_feat(out, "pointnet.feat.stn", stn_p, stn_s)
+    for i in range(2):
+        _linear(out, f"pointnet.feat.stn.fc{i + 1}", stn_p[f"fc_{i}"])
+        _bn(out, f"pointnet.feat.stn.bn{i + 4}", stn_p[f"fc_bn_{i}"], stn_s[f"fc_bn_{i}"])
+    _linear(out, "pointnet.feat.stn.fc3", stn_p["fc_out"])
+    _point_feat(out, "pointnet.feat", p["feat"], s["feat"])
+    _feat_head(out, "pointnet", p, s)
+
+
+def _radarnet(out: dict, p: dict, s: dict) -> None:
+    _point_feat(out, "radarnet.feat", p["feat"], s["feat"])
+    _feat_head(out, "radarnet", p, s)
+
+
+_MP_NAMES = {
+    "edge_update": "edge_update",
+    "past_msgs": "create_past_msgs",
+    "future_msgs": "create_future_msgs",
+    "combine": "combine_future_past",
+}
+
+
+def flax_to_state_dict(variables: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """Upstream-named state dict (numpy) of a flax MultimodalGNN or PoseGNN
+    variable tree; only the subtrees present are converted."""
+    p = variables["params"]
+    s = variables.get("batch_stats", {})
+    out: Dict[str, np.ndarray] = {}
+    if "resnet" in p:
+        _resnet(out, p["resnet"], s["resnet"])
+    if "pointnet" in p:
+        _pointnet(out, p["pointnet"], s["pointnet"])
+    if "radarnet" in p:
+        _radarnet(out, p["radarnet"], s["radarnet"])
+    for name in ("edge_encoder", "node_encoder", "edge_classifier",
+                 "fc_lidar_encoder", "fc_radar_encoder", "att_edge_encoder"):
+        if name in p:
+            _mlp(out, name, p[name])
+    for name in ("c2c_att", "l2l_att", "r2r_att"):
+        if name in p:
+            _attention(out, name, p[name])
+    for flax_name, torch_name in _MP_NAMES.items():
+        _mlp(out, f"message_passing.{torch_name}", p["message_passing"][flax_name])
+    return out
+
+
+def load_flax_variables(model: nn.Module, variables: Dict[str, Any]) -> nn.Module:
+    """Load flax variables into a port model (strict: every parameter and
+    statistic of the model must be covered, nothing may be left over)."""
+    sd = {k: torch.tensor(v) for k, v in flax_to_state_dict(variables).items()}
+    for key, buf in model.state_dict().items():
+        if key.endswith("num_batches_tracked"):
+            sd[key] = torch.zeros_like(buf)
+    model.load_state_dict(sd, strict=True)
+    return model

@@ -1,0 +1,70 @@
+"""Import hygiene of the PyTorch port: it imports no JAX, no flax and
+nothing of ``batch3dmot_tpu``, it imports without ``nvcc`` or a GPU, and its
+default-device entry points refuse to run on the CPU unless asked to."""
+
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import torch
+
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parents[1]
+
+SCRIPT = textwrap.dedent(
+    """
+    import importlib, pkgutil, sys
+    import numpy as np
+    import torch
+    torch.set_num_threads(1)
+    import batch3dmot_tpu_torch as port
+
+    for mod in pkgutil.walk_packages(port.__path__, "batch3dmot_tpu_torch."):
+        importlib.import_module(mod.name)
+
+    from batch3dmot_tpu_torch.config import GraphConstructionConfig
+    from batch3dmot_tpu_torch.data.synthetic import make_synthetic_scene
+    from batch3dmot_tpu_torch.graphs import build_scene_graphs
+    from batch3dmot_tpu_torch.infer.predict import (
+        SceneEncodedScorer, make_scorer, predict_scenes)
+    from batch3dmot_tpu_torch.models import init_params_, make_model
+
+    scene = make_synthetic_scene(seed=0, num_frames=4, num_tracks=3,
+                                 with_modalities=True)
+    windows = list(build_scene_graphs(scene, 2, GraphConstructionConfig(top_knn_nodes=3)))
+    model = init_params_(make_model("mm", depth=1), torch.Generator().manual_seed(0))
+    (pred_edges, avg), = predict_scenes(
+        SceneEncodedScorer(model, device="cpu"), [(scene, windows)])
+    assert avg and all(np.isfinite(v) for v in avg.values())
+
+    for entry in (SceneEncodedScorer, make_scorer):
+        try:
+            entry(model)
+        except RuntimeError as err:
+            assert "device='cpu'" in str(err)
+        else:
+            raise AssertionError(f"{entry.__name__} ran without a GPU")
+
+    bad = sorted(m for m in sys.modules
+                 if m in ("jax", "flax", "batch3dmot_tpu")
+                 or m.startswith(("jax.", "flax.", "batch3dmot_tpu.")))
+    assert not bad, bad
+    print("ok", len(avg))
+    """
+)
+
+
+def test_port_imports_no_jax_and_needs_no_gpu():
+    env = dict(os.environ)
+    env["CUDA_VISIBLE_DEVICES"] = ""  # no GPU, whatever the machine has
+    env["PATH"] = "/usr/bin:/bin"  # no nvcc on the path
+    env["PYTHONPATH"] = str(REPO)
+    proc = subprocess.run(
+        [sys.executable, "-c", SCRIPT], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.startswith("ok")
