@@ -5,8 +5,9 @@ cross-edge modality attention, written for one NVIDIA Hopper GPU. The
 module layout mirrors ``batch3dmot_tpu``; the JAX package stays the
 reference and the tests hold each part of this one against it.
 
-The inference entry points run on ``cuda`` unless the caller passes
-``device="cpu"``; without a GPU they raise instead of running on the CPU.
+The inference and training entry points run on ``cuda`` unless the caller
+passes ``device="cpu"``; without a GPU they raise instead of running on the
+CPU.
 """
 
 from __future__ import annotations
@@ -25,3 +26,15 @@ def resolve_device(device=None) -> torch.device:
             )
         return torch.device("cuda")
     return torch.device(device)
+
+
+def prepare_model(model: torch.nn.Module, device=None):
+    """Move ``model`` to ``device`` (None: the GPU) and return it with the
+    device. On the GPU, float32 products are held to float32: cuDNN runs
+    f32 convolutions in TF32 (about three decimal digits) unless told
+    otherwise, and f32 matmuls stay off TF32 (PyTorch's default, kept)."""
+    device = resolve_device(device)
+    if device.type == "cuda":
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    return model.to(device), device

@@ -1,5 +1,5 @@
-"""Configuration the inference slice reads: tracking classes, per-class
-thresholds, graph construction and predict settings.
+"""Configuration the port reads: tracking classes, per-class thresholds,
+graph construction, predict and GNN-training settings.
 
 A copy of the matching parts of ``batch3dmot_tpu/config.py`` (the port
 imports nothing of the JAX package), cut to the fields the port reads; the
@@ -68,3 +68,18 @@ class PredictConfig:
     edge_score_thresholds: Dict[str, float] = field(
         default_factory=lambda: dict(DEFAULT_EDGE_SCORE_THRESHOLDS)
     )
+
+
+@dataclass
+class GNNConfig:
+    """GNN training settings (the fields ``train/trainer.py`` reads; the
+    defaults are the reference's, ``batch3dmot_tpu/config.py:223-244``)."""
+
+    batch_size: int = 2  # windows per training batch
+    lr: float = 1e-4
+    weight_decay: float = 1e-4
+    beta_lo: float = 0.9
+    beta_hi: float = 0.999
+    num_epochs: int = 100
+    loss: str = "cb"  # 'cb' (class-balanced BCE) or 'bce'
+    manual_seed: int = 5621

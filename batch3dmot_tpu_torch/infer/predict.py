@@ -23,7 +23,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from batch3dmot_tpu_torch import resolve_device
+from batch3dmot_tpu_torch import prepare_model
 from batch3dmot_tpu_torch.config import (
     DEFAULT_EDGE_SCORE_THRESHOLDS,
     TRACKING_CLASSES,
@@ -57,14 +57,8 @@ def _pad_detection_count(m: int) -> int:
 
 
 def _prepare(model: torch.nn.Module, device) -> Tuple[torch.nn.Module, torch.device]:
-    device = resolve_device(device)
-    if device.type == "cuda":
-        # The encoders are held to float32: cuDNN runs f32 convolutions in
-        # TF32 (about three decimal digits) unless told otherwise, and f32
-        # matmuls must stay off TF32 too (PyTorch's default, kept here).
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
-    return model.to(device).eval(), device
+    model, device = prepare_model(model, device)
+    return model.eval(), device
 
 
 def make_scorer(model, device=None) -> Callable:

@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into ``build/torch_kernels/lib<name>_<hash>.so`` at
-the root of the checkout, keyed by a hash of the source and the flags, then
-loaded with ``ctypes``. The first call in a fresh checkout compiles; later
-calls reuse the library. Nothing here runs at import time.
+the root of the checkout, keyed by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, then loaded with ``ctypes``. The first call
+in a fresh checkout compiles; later calls reuse the library. Nothing here
+runs at import time.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
@@ -74,10 +76,26 @@ def build(names: Sequence[str]) -> Dict[str, dict]:
     return report
 
 
+# C entries per library: name -> (number of c_void_p arguments, return type)
 _ARGTYPES = {
-    # fused_mp_forward(dims, woff, wblob, x0, e_state, att, src, dst, doff,
-    #                  dperm, soff, sperm, npb, pbuf, fbuf, out, stream)
-    "fused_mp": ("fused_mp_forward", [ctypes.c_void_p] * 17),
+    "fused_mp": {
+        # fused_mp_forward(dims, woff, wblob, x0, e_state, att, src, dst,
+        #                  doff, dperm, soff, sperm, npb, pbuf, fbuf, out,
+        #                  stream)
+        "fused_mp_forward": (17, ctypes.c_int),
+        # fused_mp_forward_stash(dims, woff, wblob, att, src, dst, doff,
+        #                        dperm, soff, sperm, npb, pbuf, fbuf, xs, es,
+        #                        agg, out, stream)
+        "fused_mp_forward_stash": (18, ctypes.c_int),
+    },
+    "fused_mp_train": {
+        # fused_mp_train_workspace(dims) -> floats
+        "fused_mp_train_workspace": (1, ctypes.c_longlong),
+        # fused_mp_backward(dims, woff, wblob, toff, tblob, ds, xs, es, agg,
+        #                   att, src, dst, doff, dperm, soff, sperm, work,
+        #                   dx0, de0, datt, dblob, stream)
+        "fused_mp_backward": (22, ctypes.c_int),
+    },
 }
 
 
@@ -85,11 +103,11 @@ _ARGTYPES = {
 def load(name: str) -> ctypes.CDLL:
     """The loaded library ``name``, built first if needed. Every pointer and
     the stream are ``c_void_p`` (a bare int would be cut to 32 bits); each
-    entry returns the CUDA error code."""
+    launching entry returns the CUDA error code."""
     build([name])
     lib = ctypes.CDLL(str(library_path(name)))
-    fn_name, argtypes = _ARGTYPES[name]
-    fn = getattr(lib, fn_name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    for fn_name, (n_args, restype) in _ARGTYPES[name].items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = [ctypes.c_void_p] * n_args
+        fn.restype = restype
     return lib

@@ -43,17 +43,23 @@ def _split_rows(w, sizes):
 
 
 def _chain(seq: nn.Sequential):
+    """[in, out] weights and [1, out] biases of an MLP's linear layers, as
+    views of the parameters (still in the autograd graph)."""
     lins = [m for m in seq if isinstance(m, nn.Linear)]
     return (
-        [m.weight.detach().t() for m in lins],
-        [m.bias.detach()[None, :] for m in lins],
+        [m.weight.t() for m in lins],
+        [m.bias[None, :] for m in lins],
     )
 
 
 def extract_mp_params(model: nn.Module, with_attention: bool, node_dim: int,
-                      edge_dim: int) -> Tuple[tuple, dict]:
+                      edge_dim: int, trainable: bool = False) -> Tuple[tuple, dict]:
     """Flatten a model's message-passing and edge-classifier weights into the
-    kernel's weight tuple ([in, out] weights, [1, out] biases) and meta."""
+    kernel's weight tuple ([in, out] weights, [1, out] biases) and meta.
+
+    ``trainable=True`` keeps the weights in the autograd graph (views of
+    the ``nn.Linear`` parameters), so a loss differentiates through them to
+    the parameters; otherwise they are detached, as scoring needs."""
     mp = model.message_passing
     eu_w, eu_b = _chain(mp.edge_update)
     fut_w, fut_b = _chain(mp.create_future_msgs)
@@ -83,6 +89,8 @@ def extract_mp_params(model: nn.Module, with_attention: bool, node_dim: int,
         n_comb=len(comb_w) - 1, n_combb=len(comb_b),
         n_cls=len(cls_w), n_clsb=len(cls_b),
     )
+    if not trainable:
+        flat = tuple(w.detach() for w in flat)
     return flat, meta
 
 
@@ -124,10 +132,12 @@ def _mlp_tail(h, rest, biases):
 
 
 def fused_mp_scores_plain(x0, e0, att, src, dst, edge_mask, flat_weights,
-                          meta, depth, logits=False) -> torch.Tensor:
+                          meta, depth, logits=False, carries=False):
     """The layer loop the kernel computes, in plain PyTorch. A masked edge
     gathers zero rows (as the TPU kernels' one-hot rows) and is left out
-    of both sums; its score is still defined."""
+    of both sums; its score is still defined. ``carries=True`` also returns
+    the layer inputs the training forward stashes: x_t [B, depth, N, nd]
+    (t < depth) and e_t [B, depth + 1, E, ed] (t <= depth)."""
     (eu0, eu_rest, eu_b, fut0, fut_rest, fut_b, past0, past_rest, past_b,
      comb0, comb_rest, comb_b, cls_w, cls_b) = _unpack(meta, flat_weights)
     b, n, _ = x0.shape
@@ -146,8 +156,10 @@ def fused_mp_scores_plain(x0, e0, att, src, dst, edge_mask, flat_weights,
         return out.reshape(b, n, -1)
 
     x, e = x0, e0
+    xs, es = [], [e0]
     init_i, init_j = gather(x0, dst_f), gather(x0, src_f)
     for _ in range(depth):
+        xs.append(x)
         x_i, x_j = gather(x, dst_f), gather(x, src_f)
         h = x_i @ eu0[0] + x_j @ eu0[1] + e @ eu0[2]
         if att is not None:
@@ -160,13 +172,17 @@ def fused_mp_scores_plain(x0, e0, att, src, dst, edge_mask, flat_weights,
         agg_p, agg_f = scatter(p, dst_f), scatter(f, src_f)
         x = _mlp_tail(agg_p @ comb0[0] + agg_f @ comb0[1], comb_rest, comb_b)
         e = ue
+        es.append(e)
     h = e
     for i, (w, bias) in enumerate(zip(cls_w, cls_b)):
         h = h @ w + bias
         if i < len(cls_w) - 1:
             h = torch.relu(h)
     out = h[..., 0]
-    return out if logits else torch.sigmoid(out)
+    out = out if logits else torch.sigmoid(out)
+    if carries:
+        return out, torch.stack(xs, dim=1), torch.stack(es, dim=1)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -174,13 +190,11 @@ def fused_mp_scores_plain(x0, e0, att, src, dst, edge_mask, flat_weights,
 # ---------------------------------------------------------------------------
 
 
-def pack_mp_weights(flat_weights, meta, node_dim: int, edge_dim: int,
-                    with_attention: bool):
-    """The kernel's weight blob: one contiguous f32 tensor, the float offset
-    (a multiple of 4) of each of its 29 arrays (``Params`` order in
-    ``csrc/fused_mp.cu``) and the widths. The x parts of the first layers
-    and the x0 parts of the message layers become one [node_dim, PW] node
-    projection."""
+def mp_arrays(flat_weights, meta):
+    """The 29 arrays of the kernel's weight blob (``Params`` order in
+    ``csrc/mp_common.cuh``), built from ``flat_weights`` with differentiable
+    operations. The x parts of the first layers and the x0 parts of the
+    message layers become one [node_dim, PW] node projection."""
     shape = {k: meta[k] for k in ("n_eu", "n_fut", "n_past", "n_comb", "n_cls")}
     if shape != dict(n_eu=2, n_fut=1, n_past=1, n_comb=2, n_cls=4):
         raise ValueError(f"fused MP kernel: unsupported layer counts {shape}")
@@ -188,7 +202,7 @@ def pack_mp_weights(flat_weights, meta, node_dim: int, edge_dim: int,
      comb0, comb_rest, comb_b, cls_w, cls_b) = _unpack(meta, flat_weights)
     w_ea = torch.cat(eu0[2:], dim=0)  # rows of [edge_attr, att_edge_attr?]
     w_p = torch.cat([eu0[0], eu0[1], fut0[0], past0[0], fut0[2], past0[2]], dim=1)
-    arrays = [
+    return [
         w_ea, eu_b[0], eu_rest[0], eu_b[1], eu_rest[1], eu_b[2],
         fut0[1], fut_b[0], fut_rest[0], fut_b[1],
         past0[1], past_b[0], past_rest[0], past_b[1],
@@ -198,22 +212,35 @@ def pack_mp_weights(flat_weights, meta, node_dim: int, edge_dim: int,
         cls_w[0], cls_b[0], cls_w[1], cls_b[1], cls_w[2], cls_b[2],
         cls_w[3], cls_b[3],
     ]
-    # every array starts on a 16-byte boundary (the kernel copies weights
-    # in 16-byte pieces)
-    pieces, woff, pos = [], [], 0
+
+
+def pack_arrays(arrays):
+    """One contiguous, detached f32 blob of ``arrays`` and the float offset
+    of each; every array starts on a 16-byte boundary (the kernels copy
+    weights in 16-byte pieces)."""
+    pieces, offs, pos = [], [], 0
     for a in arrays:
-        a = a.reshape(-1).float()
+        a = a.detach().reshape(-1).float()
         pad = -a.numel() % 4
         pieces += [a, a.new_zeros(pad)]
-        woff.append(pos)
+        offs.append(pos)
         pos += a.numel() + pad
-    woff = np.array(woff, np.int64)
-    blob = torch.cat(pieces)
+    return torch.cat(pieces), np.array(offs, np.int64)
+
+
+def pack_mp_weights(flat_weights, meta, node_dim: int, edge_dim: int,
+                    with_attention: bool):
+    """The kernel's weight blob (a detached copy): one contiguous f32
+    tensor of :func:`mp_arrays`, the float offset (a multiple of 4) of each
+    of its 29 arrays and the widths."""
+    arrays = mp_arrays(flat_weights, meta)
+    blob, woff = pack_arrays(arrays)
+    w_ea, w1, w2, fue, f1, c1w, c2w, l1w, l2w, l3w = (
+        arrays[i] for i in (0, 2, 4, 6, 8, 16, 18, 23, 25, 27))
     widths = dict(
-        H1=eu_rest[0].shape[0], H2=eu_rest[1].shape[0],
-        M1=fut_rest[0].shape[0], M=fut_rest[0].shape[1],
-        C1=comb_rest[0].shape[0], C2=comb_rest[1].shape[0],
-        L1=cls_w[1].shape[0], L2=cls_w[2].shape[0], L3=cls_w[3].shape[0],
+        H1=w1.shape[0], H2=w2.shape[0], M1=f1.shape[0], M=f1.shape[1],
+        C1=c1w.shape[0], C2=c2w.shape[0],
+        L1=l1w.shape[0], L2=l2w.shape[0], L3=l3w.shape[0],
     )
     return blob, woff, widths
 
@@ -234,7 +261,7 @@ def edge_csr(idx: torch.Tensor, num_nodes: int):
     return off, perm
 
 
-def _ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
+def ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
     return ctypes.c_void_p(0 if t is None else t.data_ptr())
 
 
@@ -248,9 +275,12 @@ def _check(name, t, dtype, shape):
         raise ValueError(f"fused MP kernel: {name} must be contiguous")
 
 
-def fused_mp_scores_cuda(x0, e0, att, src, dst, edge_mask, flat_weights, meta,
-                         depth, logits=False) -> torch.Tensor:
-    """Launch the Hopper kernel on the current stream; scores [B, E]."""
+def kernel_inputs(x0, e0, att, src, dst, edge_mask, flat_weights, meta,
+                  depth, logits):
+    """Check the inputs and stage what every launch of the kernel family
+    reads: the weight blob and its offsets, the widths, ``dims`` (the C
+    entries' int32 header), the masked indices (-1 for a masked edge) and
+    the destination and source CSRs."""
     b, n, nd = x0.shape
     e, ed = e0.shape[1], e0.shape[2]
     with_att = att is not None
@@ -269,26 +299,42 @@ def fused_mp_scores_cuda(x0, e0, att, src, dst, edge_mask, flat_weights, meta,
     dst_m = torch.where(edge_mask, dst.to(torch.int32), neg).contiguous()
     doff, dperm = edge_csr(dst_m, n)
     soff, sperm = edge_csr(src_m, n)
-
-    pw = 2 * w["H1"] + 4 * w["M1"]
-    e_state = e0.clone()
-    npb = torch.empty(b, n, pw, dtype=torch.float32, device=x0.device)
-    pbuf = torch.empty(b, e, w["M"], dtype=torch.float32, device=x0.device)
-    fbuf = torch.empty_like(pbuf)
-    out = torch.empty(b, e, dtype=torch.float32, device=x0.device)
     dims = np.array(
         [b, n, e, nd, ed, int(with_att), depth, int(logits),
          w["H1"], w["H2"], w["M1"], w["M"], w["C1"], w["C2"],
          w["L1"], w["L2"], w["L3"]],
         np.int32,
     )
+    return dict(blob=blob, woff=woff, widths=w, dims=dims, src=src_m,
+                dst=dst_m, doff=doff, dperm=dperm, soff=soff, sperm=sperm)
+
+
+def host_ptr(a: np.ndarray) -> ctypes.c_void_p:
+    return ctypes.c_void_p(a.ctypes.data)
+
+
+def fused_mp_scores_cuda(x0, e0, att, src, dst, edge_mask, flat_weights, meta,
+                         depth, logits=False) -> torch.Tensor:
+    """Launch the Hopper kernel on the current stream; scores [B, E]."""
+    k = kernel_inputs(x0, e0, att, src, dst, edge_mask, flat_weights, meta,
+                      depth, logits)
+    b, n, _ = x0.shape
+    e = e0.shape[1]
+    w = k["widths"]
+    pw = 2 * w["H1"] + 4 * w["M1"]
+    e_state = e0.clone()
+    npb = torch.empty(b, n, pw, dtype=torch.float32, device=x0.device)
+    pbuf = torch.empty(b, e, w["M"], dtype=torch.float32, device=x0.device)
+    fbuf = torch.empty_like(pbuf)
+    out = torch.empty(b, e, dtype=torch.float32, device=x0.device)
     stream = torch.cuda.current_stream(x0.device).cuda_stream
     lib = cuda_build.load("fused_mp")
     err = lib.fused_mp_forward(
-        ctypes.c_void_p(dims.ctypes.data), ctypes.c_void_p(woff.ctypes.data),
-        _ptr(blob), _ptr(x0), _ptr(e_state), _ptr(att), _ptr(src_m),
-        _ptr(dst_m), _ptr(doff), _ptr(dperm), _ptr(soff), _ptr(sperm),
-        _ptr(npb), _ptr(pbuf), _ptr(fbuf), _ptr(out), ctypes.c_void_p(stream),
+        host_ptr(k["dims"]), host_ptr(k["woff"]),
+        ptr(k["blob"]), ptr(x0), ptr(e_state), ptr(att), ptr(k["src"]),
+        ptr(k["dst"]), ptr(k["doff"]), ptr(k["dperm"]), ptr(k["soff"]),
+        ptr(k["sperm"]), ptr(npb), ptr(pbuf), ptr(fbuf), ptr(out),
+        ctypes.c_void_p(stream),
     )
     if err != 0:
         raise RuntimeError(f"fused MP kernel launch failed: CUDA error {err}")

@@ -1,0 +1,207 @@
+"""Fused message-passing TRAINING: a forward kernel that stashes the layer
+carries and a hand-written backward kernel, both for Hopper, behind a
+``torch.autograd.Function`` (counterpart of
+``batch3dmot_tpu/ops/pallas_mp_train.py``).
+
+The kernels replace the Pallas training pairs B4/B5 (``_train_fwd_kernel``,
+``_train_bwd_kernel``) and B6/B7 (their edge-tiled variants): the
+forward is ``csrc/fused_mp.cu::fused_mp_forward_stash`` and the backward
+``csrc/fused_mp_train.cu::fused_mp_backward``; their source notes say what
+bounds them and how the design answers that. One pair covers every bucket
+of ``graph.DEFAULT_BUCKETS``, so the JAX cover logic and its XLA-autodiff
+fallback have no counterpart here.
+
+:func:`fused_mp_train_scores` launches the pair for CUDA tensors (or
+raises) and differentiates :func:`fused_mp_scores_plain` with autograd for
+CPU tensors. Gradients reach the ``nn.Linear`` parameters through
+``extract_mp_params(..., trainable=True)``; the stages before the loop
+(encoders, attention, attribute encoders) are differentiated by autograd.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from batch3dmot_tpu_torch.models.gnn import PoseGNN
+from batch3dmot_tpu_torch.ops import cuda_build
+from batch3dmot_tpu_torch.ops.fused_mp import (
+    extract_mp_params,
+    fused_mp_scores_cuda,
+    fused_mp_scores_plain,
+    host_ptr,
+    kernel_inputs,
+    mp_arrays,
+    pack_arrays,
+    ptr,
+)
+
+# Arrays of the weight blob (``mp_arrays`` order) whose transposes the
+# backward multiplies by, in ``TParams`` order (csrc/fused_mp_train.cu):
+# P1, F1, Pue, Fue, W2, W1, Wea, C2w, C1w, C0, Wp, L2w, L1w, L0.
+_TRANSPOSED = (12, 8, 10, 6, 4, 2, 0, 18, 16, 14, 20, 25, 23, 21)
+
+
+def _stream(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def _flat_grads(dblob, woff, flat, meta):
+    """Gradients of ``flat`` from the gradient of the packed blob: the
+    transpose of the (differentiable) packing, by autograd."""
+    with torch.enable_grad():
+        leaves = [w.detach().requires_grad_() for w in flat]
+        arrays = mp_arrays(leaves, meta)
+        grads = [dblob[o: o + a.numel()].view(a.shape) for a, o in zip(arrays, woff)]
+        return torch.autograd.grad(arrays, leaves, grads)
+
+
+def train_forward_cuda(x0, e0, att, src, dst, edge_mask, flat, meta, depth,
+                       logits=False):
+    """Launch the stashing forward on the current stream. Returns the
+    scores [B, E], the stashes x_t [B, depth, N, nd], e_t [B, depth + 1, E,
+    ed] and agg_t [B, depth, N, 2M], and the staged kernel inputs."""
+    k = kernel_inputs(x0, e0, att, src, dst, edge_mask, flat, meta, depth, logits)
+    b, n, nd = x0.shape
+    e, ed = e0.shape[1], e0.shape[2]
+    w = k["widths"]
+    f32 = dict(dtype=torch.float32, device=x0.device)
+    xs = torch.empty(b, depth, n, nd, **f32)
+    xs[:, 0] = x0
+    es = torch.empty(b, depth + 1, e, ed, **f32)
+    es[:, 0] = e0
+    agg = torch.empty(b, depth, n, 2 * w["M"], **f32)
+    npb = torch.empty(b, n, 2 * w["H1"] + 4 * w["M1"], **f32)
+    pbuf = torch.empty(b, e, w["M"], **f32)
+    fbuf = torch.empty_like(pbuf)
+    out = torch.empty(b, e, **f32)
+    err = cuda_build.load("fused_mp").fused_mp_forward_stash(
+        host_ptr(k["dims"]), host_ptr(k["woff"]), ptr(k["blob"]), ptr(att),
+        ptr(k["src"]), ptr(k["dst"]), ptr(k["doff"]), ptr(k["dperm"]),
+        ptr(k["soff"]), ptr(k["sperm"]), ptr(npb), ptr(pbuf), ptr(fbuf),
+        ptr(xs), ptr(es), ptr(agg), ptr(out), _stream(x0),
+    )
+    if err != 0:
+        raise RuntimeError(f"fused MP training forward failed: CUDA error {err}")
+    fused_mp_train_scores.fwd_launches += 1
+    return out, xs, es, agg, k
+
+
+class _FusedMPTrain(torch.autograd.Function):
+    """Scores [B, E] of the message-passing loop and the edge classifier;
+    the forward kernel stashes x_t, e_t and the per-node message sums, the
+    backward kernel recomputes each layer from them."""
+
+    @staticmethod
+    def forward(ctx, x0, e0, att, src, dst, edge_mask, meta, depth, logits, *flat):
+        out, xs, es, agg, k = train_forward_cuda(
+            x0, e0, att, src, dst, edge_mask, flat, meta, depth, logits)
+        ctx.meta, ctx.kdims, ctx.woff = meta, k["dims"], k["woff"]
+        ctx.save_for_backward(
+            xs, es, agg, att, k["src"], k["dst"], k["doff"], k["dperm"],
+            k["soff"], k["sperm"], k["blob"], *flat,
+        )
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        (xs, es, agg, att, src_m, dst_m, doff, dperm, soff, sperm, blob,
+         *flat) = ctx.saved_tensors
+        b, _, n, nd = xs.shape
+        e, ed = es.shape[2], es.shape[3]
+        arrays = mp_arrays(flat, ctx.meta)
+        tblob, toff = pack_arrays([arrays[i].t() for i in _TRANSPOSED])
+        lib = cuda_build.load("fused_mp_train")
+        n_work = lib.fused_mp_train_workspace(host_ptr(ctx.kdims))
+        if n_work < 0:
+            raise ValueError("fused MP training backward: unsupported widths")
+        f32 = dict(dtype=torch.float32, device=xs.device)
+        work = torch.empty(n_work, **f32)
+        ds = d_out.to(torch.float32).contiguous()
+        dx0 = torch.empty(b, n, nd, **f32)
+        de0 = torch.empty(b, e, ed, **f32)
+        datt = None if att is None else torch.zeros(b, e, ed, **f32)
+        dblob = torch.zeros_like(blob)
+        err = lib.fused_mp_backward(
+            host_ptr(ctx.kdims), host_ptr(ctx.woff), ptr(blob), host_ptr(toff),
+            ptr(tblob), ptr(ds), ptr(xs), ptr(es), ptr(agg), ptr(att),
+            ptr(src_m), ptr(dst_m), ptr(doff), ptr(dperm), ptr(soff),
+            ptr(sperm), ptr(work), ptr(dx0), ptr(de0), ptr(datt), ptr(dblob),
+            _stream(xs),
+        )
+        if err != 0:
+            raise RuntimeError(f"fused MP training backward failed: CUDA error {err}")
+        fused_mp_train_scores.bwd_launches += 1
+        dflat = _flat_grads(dblob, ctx.woff, flat, ctx.meta)
+        return (dx0, de0, datt, None, None, None, None, None, None, *dflat)
+
+
+def fused_mp_train_scores(x0, e0, att, src, dst, edge_mask, flat, meta, depth,
+                          logits=False) -> torch.Tensor:
+    """Differentiable scores [B, E] (sigmoid unless ``logits``) of the
+    depth-``depth`` message-passing loop and the edge classifier.
+
+    Arguments as :func:`fused_mp_scores`. CUDA tensors go through the
+    Hopper kernel pair when a gradient is wanted (a launch failure raises)
+    and through the inference kernel otherwise; CPU tensors through
+    autograd of :func:`fused_mp_scores_plain`.
+    ``fused_mp_train_scores.fwd_launches`` / ``.bwd_launches`` count the
+    pair's runs."""
+    if x0.device.type == "cuda":
+        wants_grad = torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x0, e0, att, *flat)
+        )
+        if not wants_grad:
+            return fused_mp_scores_cuda(
+                x0, e0, att, src, dst, edge_mask, flat, meta, depth, logits
+            )
+        return _FusedMPTrain.apply(
+            x0, e0, att, src, dst, edge_mask, meta, depth, logits, *flat
+        )
+    if x0.device.type != "cpu":
+        raise ValueError(f"fused MP training: unsupported device {x0.device}")
+    return fused_mp_scores_plain(
+        x0, e0, att, src, dst, edge_mask, flat, meta, depth, logits
+    )
+
+
+fused_mp_train_scores.fwd_launches = 0
+fused_mp_train_scores.bwd_launches = 0
+
+
+def fused_training_scores(model, batch,
+                          encodings: Optional[Tuple] = None) -> torch.Tensor:
+    """Differentiable fused scores [B, E] for the GNN trainer: ``PoseGNN``
+    gives LOGITS, ``MultimodalGNN`` sigmoid scores.
+
+    ``encodings=(x_img, pn, rn, lidar_present, radar_present)`` are the
+    frozen-encoder outputs per window node ([B, N, .]); without them the
+    frozen encoders run here, without gradient."""
+    if getattr(model, "knn_conv_mode", "noop") != "noop":
+        raise ValueError("fused training: knn_conv_mode must be 'noop'")
+    if isinstance(model, PoseGNN):
+        x0, e0 = model.pre_message_passing(batch)
+        att, logits = None, True
+    else:
+        if encodings is None:
+            b, n = batch.pose.shape[:2]
+            flat = lambda t: t.reshape(b * n, *t.shape[2:])  # noqa: E731
+            with torch.no_grad():
+                xi, pn, rn = model.encode_frozen(
+                    flat(batch.img), flat(batch.lidar), flat(batch.radar))
+            encodings = (
+                xi.reshape(b, n, -1), pn.reshape(b, n, -1), rn.reshape(b, n, -1),
+                batch.lidar.sum(dim=(-2, -1)) != 0,
+                batch.radar.sum(dim=(-2, -1)) != 0,
+            )
+        x0, e0, att, _ = model.pre_message_passing(batch, *encodings)
+        logits = False
+    flat_w, meta = extract_mp_params(
+        model, att is not None, model.node_dim, model.edge_dim, trainable=True
+    )
+    return fused_mp_train_scores(
+        x0, e0, att, batch.edge_src, batch.edge_dst, batch.edge_mask,
+        flat_w, meta, model.depth, logits,
+    )

@@ -143,6 +143,17 @@ def flax_to_state_dict(variables: Dict[str, Any]) -> Dict[str, np.ndarray]:
     return out
 
 
+def flax_grads_to_state_dict(grads: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """A flax gradient tree (the ``params`` collection's structure) mapped
+    onto the port's parameter names through the same transposes as
+    :func:`flax_to_state_dict`, so that one leaf compares with another.
+    The frozen encoders' subtrees are left out: the port gives them no
+    gradient at all."""
+    trainable = {k: v for k, v in grads.items()
+                 if k not in ("resnet", "pointnet", "radarnet")}
+    return flax_to_state_dict({"params": trainable})
+
+
 def load_flax_variables(model: nn.Module, variables: Dict[str, Any]) -> nn.Module:
     """Load flax variables into a port model (strict: every parameter and
     statistic of the model must be covered, nothing may be left over)."""

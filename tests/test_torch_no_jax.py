@@ -1,6 +1,7 @@
 """Import hygiene of the PyTorch port: it imports no JAX, no flax and
-nothing of ``batch3dmot_tpu``, it imports without ``nvcc`` or a GPU, and its
-default-device entry points refuse to run on the CPU unless asked to."""
+nothing of ``batch3dmot_tpu``, it imports, scores and takes a training
+step without ``nvcc`` or a GPU, and its default-device entry points
+(scorers, trainer) refuse to run on the CPU unless asked to."""
 
 import os
 import subprocess
@@ -47,6 +48,23 @@ SCRIPT = textwrap.dedent(
             assert "device='cpu'" in str(err)
         else:
             raise AssertionError(f"{entry.__name__} ran without a GPU")
+
+    from batch3dmot_tpu_torch.config import GNNConfig
+    from batch3dmot_tpu_torch.train.encoded import (
+        EncodedGraphBatcher, precompute_scene_encodings)
+    from batch3dmot_tpu_torch.train.trainer import GNNTrainer
+
+    enc = precompute_scene_encodings(model, scene, device="cpu")
+    batch = next(EncodedGraphBatcher([(w, enc) for w in windows], 2).epoch())
+    trainer = GNNTrainer(make_model("mm", depth=1), GNNConfig(), device="cpu")
+    loss, _ = trainer.train_step(batch)
+    assert np.isfinite(float(loss)) and trainer.step == 1
+    try:
+        GNNTrainer(make_model("pose", depth=1))
+    except RuntimeError as err:
+        assert "device='cpu'" in str(err)
+    else:
+        raise AssertionError("GNNTrainer ran without a GPU")
 
     bad = sorted(m for m in sys.modules
                  if m in ("jax", "flax", "batch3dmot_tpu")
