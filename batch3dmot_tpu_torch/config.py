@@ -82,4 +82,12 @@ class GNNConfig:
     beta_hi: float = 0.999
     num_epochs: int = 100
     loss: str = "cb"  # 'cb' (class-balanced BCE) or 'bce'
+    # the frame-wise kNN GATConv: 'noop' skips it, as the trained reference
+    # checkpoints do (the reference discards its result); 'active' applies it
+    knn_conv_mode: str = "noop"
+    knn_conv_k: int = 20
     manual_seed: int = 5621
+
+    def __post_init__(self) -> None:
+        if self.knn_conv_mode not in ("noop", "active"):
+            raise ValueError(f"Unknown knn_conv_mode '{self.knn_conv_mode}'")

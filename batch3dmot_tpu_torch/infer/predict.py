@@ -5,7 +5,10 @@
     once, then scores the windows in batches per shape bucket: each window
     gathers its nodes' embeddings by detection index, the model runs the
     pre-message-passing stage, and the fused message-passing kernel the
-    loop and the edge classifier (its plain version on the CPU).
+    loop and the edge classifier (its plain version on the CPU). A model
+    in ``knn_conv_mode='active'`` runs its module loop instead (the kNN
+    GATConv and the message passing, whose segment sums go through the
+    segment-sum kernel), as the JAX package does.
   * Scores of an edge seen by several overlapping windows are averaged,
     thresholded per class and greedily rounded to at most one best
     incoming and one best outgoing edge per node.
@@ -64,13 +67,18 @@ def _prepare(model: torch.nn.Module, device) -> Tuple[torch.nn.Module, torch.dev
 def make_scorer(model, device=None) -> Callable:
     """A batched window scorer: PaddedGraph[B, ...] (with modalities) ->
     scores [B, E] on the device. The frozen encoders run per window node,
-    then the fused kernel; PoseGNN logits go through a sigmoid."""
+    then the fused kernel, or the module loop in ``'active'`` mode; PoseGNN
+    logits go through a sigmoid."""
     model, device = _prepare(model, device)
     pose = isinstance(model, PoseGNN)
+    active = model.knn_conv_mode == "active"
 
     def run(batch):
         with torch.inference_mode():
             batch = batch.to(device)
+            if active:
+                scores = model(batch)[0]
+                return torch.sigmoid(scores) if pose else scores
             if pose:
                 return torch.sigmoid(fused_logits_pose(model, batch))
             return fused_scores_full(model, batch)
@@ -92,6 +100,8 @@ class SceneEncodedScorer:
 
     def _forward(self, batch, det_index, enc):
         x_img, pn, rn, lp, rp = (t[det_index] for t in enc)
+        if self.model.knn_conv_mode == "active":
+            return self.model.forward_from_encodings(batch, x_img, pn, rn, lp, rp)[0]
         return fused_scores_from_encodings(self.model, batch, x_img, pn, rn, lp, rp)
 
     def dispatch_scenes(

@@ -15,8 +15,10 @@ node rows by ``edge_src``/``edge_dst``; the two scatter-adds of each layer
 edges. Parameter names follow the upstream PyTorch state dict, so
 ``utils/torch_import.py::import_mm_gnn`` reads the port's state dict.
 
-Only ``knn_conv_mode='noop'`` exists here: the upstream frame-wise kNN
-GATConv result is discarded, and the trained checkpoints embed that.
+``knn_conv_mode='noop'`` (the default) skips the frame-wise kNN GATConv,
+whose result the upstream model discards (the trained checkpoints embed
+that); ``'active'`` applies it before message-passing layers 0, 2, 4, ...
+over the k nearest same-time nodes of x, as the code visibly intended.
 """
 
 from __future__ import annotations
@@ -32,22 +34,31 @@ from batch3dmot_tpu_torch.models.encoders import (
     RadarNetClassifier,
     ResNetAE,
 )
-from batch3dmot_tpu_torch.models.layers import MLP, SingleTokenAttention
+from batch3dmot_tpu_torch.models.layers import (
+    MLP,
+    GATConv,
+    SingleTokenAttention,
+    gather_nodes,
+)
+from batch3dmot_tpu_torch.ops.knn import knn_graph_masked
 from batch3dmot_tpu_torch.ops.segment import segment_sum
 
 
-def gather_nodes(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Rows of x [B, N, D] at idx [B, E] -> [B, E, D]."""
-    return torch.gather(x, 1, idx.long().unsqueeze(-1).expand(-1, -1, x.shape[-1]))
-
-
 def _check_knn_mode(knn_conv_mode: str) -> None:
-    if knn_conv_mode == "active":
-        raise NotImplementedError(
-            "knn_conv_mode='active' (the frame-wise kNN GATConv) is not ported yet"
-        )
-    if knn_conv_mode != "noop":
+    if knn_conv_mode not in ("noop", "active"):
         raise ValueError(f"Unknown knn_conv_mode '{knn_conv_mode}'")
+
+
+def apply_knn_conv(conv: GATConv, k: int, x: torch.Tensor, g: PaddedGraph) -> torch.Tensor:
+    """The active-mode step before a message-passing layer: a GATConv over
+    each valid node's k nearest valid same-time nodes of x (the graph
+    carries no gradient); padded nodes keep x."""
+    same_t = g.node_time[..., None, :] == g.node_time[..., :, None]
+    k_src, k_dst, k_mask = knn_graph_masked(
+        x.detach(), k, valid=g.node_mask, pair_valid=same_t
+    )
+    x_conv = conv(x, k_src, k_dst, k_mask)
+    return torch.where(g.node_mask[..., None], x_conv, x)
 
 
 class CausalMessagePassing(nn.Module):
@@ -139,6 +150,7 @@ class MultimodalGNN(nn.Module):
         self.radar_dim = radar_dim
         self.use_attention = use_attention
         self.knn_conv_mode = knn_conv_mode
+        self.knn_conv_k = knn_conv_k
         self.modalities = tuple(modalities)
         has = self.has
 
@@ -170,6 +182,8 @@ class MultimodalGNN(nn.Module):
         # the message passing always consumes the attention attribute; the
         # use_attention flag only changes how it is computed
         self.message_passing = CausalMessagePassing(node_dim, edge_dim, 128)
+        if knn_conv_mode == "active":
+            self.knn_conv = GATConv(node_dim)
 
     def has(self, modality: str) -> bool:
         return modality in self.modalities
@@ -260,12 +274,15 @@ class MultimodalGNN(nn.Module):
         radar_present: torch.Tensor,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(edge scores [B, E] in (0, 1), x_sens [B, N, 288]) through the
-        module loop (the fused kernel's plain-module twin)."""
+        module loop: the fused kernel's plain-module twin in ``'noop'``
+        mode, the only path in ``'active'`` mode."""
         x, edge_attr, att_edge_attr, x_sens = self.pre_message_passing(
             g, x_img, pn, rn, lidar_present, radar_present
         )
         initial_x = x
-        for _ in range(self.depth):
+        for layer in range(self.depth):
+            if layer % 2 == 0 and self.knn_conv_mode == "active":
+                x = apply_knn_conv(self.knn_conv, self.knn_conv_k, x, g)
             x, edge_attr = self.message_passing(
                 x, edge_attr, initial_x, g.edge_src, g.edge_dst, g.edge_mask,
                 att_edge_attr,
@@ -291,12 +308,15 @@ class PoseGNN(nn.Module):
         self.node_dim = node_dim
         self.edge_dim = edge_dim
         self.knn_conv_mode = knn_conv_mode
+        self.knn_conv_k = knn_conv_k
         self.edge_encoder = MLP(EDGE_DIM, (8, 16, edge_dim))
         self.node_encoder = MLP(POSE_DIM, (24, 36, node_dim))
         self.edge_classifier = MLP(edge_dim, (16, 8, 4, 1))
         self.message_passing = CausalMessagePassing(
             node_dim, edge_dim, 64, edge_update_hidden=(96, 64), with_attention=False
         )
+        if knn_conv_mode == "active":
+            self.knn_conv = GATConv(node_dim)
 
     def pre_message_passing(self, g: PaddedGraph) -> Tuple[torch.Tensor, torch.Tensor]:
         """(x0, edge_attr0): the fused-kernel handoff point."""
@@ -305,7 +325,9 @@ class PoseGNN(nn.Module):
     def forward(self, g: PaddedGraph) -> Tuple[torch.Tensor, torch.Tensor]:
         x, edge_attr = self.pre_message_passing(g)
         initial_x = x
-        for _ in range(self.depth):
+        for layer in range(self.depth):
+            if layer % 2 == 0 and self.knn_conv_mode == "active":
+                x = apply_knn_conv(self.knn_conv, self.knn_conv_k, x, g)
             x, edge_attr = self.message_passing(
                 x, edge_attr, initial_x, g.edge_src, g.edge_dst, g.edge_mask
             )

@@ -1,15 +1,22 @@
-"""Shared layers: MLPs, single-token attention, eval-mode batch norm, and
-seeded parameter initialisation (counterpart of
-``batch3dmot_tpu/models/layers.py``)."""
+"""Shared layers: MLPs, single-token attention, the kNN graph attention
+convolution, eval-mode batch norm, and seeded parameter initialisation
+(counterpart of ``batch3dmot_tpu/models/layers.py``)."""
 
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from batch3dmot_tpu_torch.ops.segment import segment_softmax, segment_sum
+
+
+def gather_nodes(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows of x [B, N, D] at idx [B, E] -> [B, E, D]."""
+    return torch.gather(x, 1, idx.long().unsqueeze(-1).expand(-1, -1, x.shape[-1]))
 
 
 class MLP(nn.Sequential):
@@ -51,6 +58,41 @@ class SingleTokenAttention(nn.Module):
         return self.out_proj(v)
 
 
+class GATConv(nn.Module):
+    """Single-head graph attention convolution over a masked edge list,
+    ``torch_geometric.nn.GATConv(F, F, add_self_loops=False)``:
+    e_ij = LeakyReLU(a_src . (W x_j) + a_dst . (W x_i)); alpha = softmax of
+    e over the incoming edges of i; out_i = sum_j alpha_ij (W x_j) + bias.
+    The parameters carry PyG's names and shapes (``lin.weight`` [F, F],
+    ``att_src`` and ``att_dst`` [1, 1, F], ``bias`` [F])."""
+
+    def __init__(self, features: int, negative_slope: float = 0.2):
+        super().__init__()
+        self.features = features
+        self.negative_slope = negative_slope
+        self.lin = nn.Linear(features, features, bias=False)
+        self.att_src = nn.Parameter(torch.empty(1, 1, features))
+        self.att_dst = nn.Parameter(torch.empty(1, 1, features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(
+        self,
+        x: torch.Tensor,  # [B, N, F]
+        src: torch.Tensor,  # [B, E]
+        dst: torch.Tensor,  # [B, E]
+        edge_mask: Optional[torch.Tensor] = None,  # [B, E] bool
+    ) -> torch.Tensor:
+        n = x.shape[-2]
+        wx = self.lin(x)
+        s_src = (wx @ self.att_src.reshape(-1, 1))[..., 0]  # [B, N]
+        s_dst = (wx @ self.att_dst.reshape(-1, 1))[..., 0]
+        alpha = torch.gather(s_src, 1, src.long()) + torch.gather(s_dst, 1, dst.long())
+        alpha = F.leaky_relu(alpha, self.negative_slope)
+        alpha = segment_softmax(alpha, dst, n, edge_mask)
+        msgs = gather_nodes(wx, src) * alpha[..., None]
+        return segment_sum(msgs, dst, n, edge_mask) + self.bias
+
+
 def batch_norm_eval(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor) -> torch.Tensor:
     """Batch norm with the running statistics, whatever the module's mode
     (the encoders are frozen feature extractors). Channels on dim 1."""
@@ -70,8 +112,21 @@ def batch_norm_last(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor) -> tor
 def init_params_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Fill every parameter with seeded random values: U(-1/sqrt(fan_in),
     1/sqrt(fan_in)) for weights and biases, batch-norm affine (1, 0) and
-    running statistics (0, 1). The same seed gives the same weights."""
+    running statistics (0, 1), and for a GATConv Glorot-uniform ``lin``
+    and attention vectors with a zero bias (PyG's and flax's init). The
+    same seed gives the same weights."""
+    done = set()
     for mod in module.modules():
+        if id(mod) in done:
+            continue
+        if isinstance(mod, GATConv):
+            for p in (mod.lin.weight, mod.att_src, mod.att_dst):
+                bound = math.sqrt(6.0 / (p.shape[-1] + p.shape[-2]))
+                u = torch.rand(p.shape, generator=generator, dtype=torch.float32)
+                p.copy_((u * 2.0 - 1.0) * bound)
+            mod.bias.zero_()
+            done.add(id(mod.lin))
+            continue
         if isinstance(mod, nn.modules.batchnorm._BatchNorm):
             mod.weight.fill_(1.0)
             mod.bias.zero_()

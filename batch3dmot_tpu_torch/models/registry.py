@@ -10,11 +10,12 @@ from batch3dmot_tpu_torch.models.gnn import MultimodalGNN, PoseGNN
 
 
 def _mm(modalities, use_attention=True):
-    def make(depth: int = 6, knn_conv_mode: str = "noop", **kw):
+    def make(depth: int = 6, knn_conv_mode: str = "noop", knn_conv_k: int = 20, **kw):
         return MultimodalGNN(
             depth=depth,
             use_attention=use_attention,
             knn_conv_mode=knn_conv_mode,
+            knn_conv_k=knn_conv_k,
             modalities=modalities,
             **kw,
         )
@@ -23,8 +24,8 @@ def _mm(modalities, use_attention=True):
 
 
 def _pose():
-    def make(depth: int = 6, knn_conv_mode: str = "noop", **kw):
-        return PoseGNN(depth=depth, knn_conv_mode=knn_conv_mode, **kw)
+    def make(depth: int = 6, knn_conv_mode: str = "noop", knn_conv_k: int = 20, **kw):
+        return PoseGNN(depth=depth, knn_conv_mode=knn_conv_mode, knn_conv_k=knn_conv_k, **kw)
 
     return make
 
@@ -42,12 +43,15 @@ MODEL_REGISTRY: Dict[str, Callable] = {
 }
 
 
-def make_model(name: str, depth: int = 6, knn_conv_mode: str = "noop", **kw):
-    """Instantiate a registered model family by upstream or short name."""
+def make_model(name: str, depth: int = 6, knn_conv_mode: str = "noop",
+               knn_conv_k: int = 20, **kw):
+    """Instantiate a registered model family by upstream or short name;
+    ``knn_conv_mode`` ('noop' or 'active') and ``knn_conv_k`` set the
+    frame-wise kNN GATConv."""
     try:
         ctor = MODEL_REGISTRY[name]
     except KeyError:
         raise ValueError(
             f"Unknown model '{name}'; choose from {sorted(MODEL_REGISTRY)}"
         ) from None
-    return ctor(depth=depth, knn_conv_mode=knn_conv_mode, **kw)
+    return ctor(depth=depth, knn_conv_mode=knn_conv_mode, knn_conv_k=knn_conv_k, **kw)

@@ -96,6 +96,10 @@ _ARGTYPES = {
         #                   dx0, de0, datt, dblob, stream)
         "fused_mp_backward": (22, ctypes.c_int),
     },
+    "segment_sum": {
+        # segment_sum_forward(dims, data, off, perm, out, stream)
+        "segment_sum_forward": (6, ctypes.c_int),
+    },
 }
 
 

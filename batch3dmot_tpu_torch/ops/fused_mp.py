@@ -249,16 +249,16 @@ def edge_csr(idx: torch.Tensor, num_nodes: int):
     """Per-window CSR of edges by node for idx [B, E] (-1 = masked edge):
     offsets [B * (N + 1) + 1] and the global edge ids (b * E + e) of each
     node's edges in edge order. Masked edges land in a sentinel row N that
-    no node reads."""
+    no node reads. The offsets come from a binary search of the sorted
+    keys: no device-to-host copy (``bincount`` would wait for the device
+    to size its output)."""
     b, e = idx.shape
     key = torch.where(idx >= 0, idx.long(), num_nodes)
     key = (key + torch.arange(b, device=idx.device)[:, None] * (num_nodes + 1))
-    key = key.reshape(-1)
-    perm = torch.argsort(key, stable=True).to(torch.int32)
-    counts = torch.bincount(key, minlength=b * (num_nodes + 1))
-    off = torch.zeros(b * (num_nodes + 1) + 1, dtype=torch.int32, device=idx.device)
-    off[1:] = torch.cumsum(counts, 0).to(torch.int32)
-    return off, perm
+    sorted_key, perm = torch.sort(key.reshape(-1), stable=True)
+    rows = torch.arange(b * (num_nodes + 1) + 1, device=idx.device)
+    off = torch.searchsorted(sorted_key, rows).to(torch.int32)
+    return off, perm.to(torch.int32)
 
 
 def ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
@@ -371,10 +371,18 @@ fused_mp_scores.launches = 0
 # ---------------------------------------------------------------------------
 
 
+def _require_noop(model) -> None:
+    """The kernel has no kNN GATConv: it serves ``knn_conv_mode='noop'``
+    models only (the JAX package's guard, ``pallas_mp.py:751,796``)."""
+    if model.knn_conv_mode != "noop":
+        raise ValueError("fused MP kernel: knn_conv_mode must be 'noop'")
+
+
 def fused_scores_from_encodings(model, batch, x_img, pn, rn, lp, rp) -> torch.Tensor:
     """Batched ``forward_from_encodings`` scores of a MultimodalGNN: the
     module computes the pre-message-passing stage, the fused kernel (or its
     plain version on the CPU) the loop and the classifier."""
+    _require_noop(model)
     x0, e0, att, _ = model.pre_message_passing(batch, x_img, pn, rn, lp, rp)
     # the message passing always consumes att_edge_attr; use_attention only
     # changes how it is computed
@@ -388,6 +396,7 @@ def fused_scores_from_encodings(model, batch, x_img, pn, rn, lp, rp) -> torch.Te
 def fused_scores_full(model, batch) -> torch.Tensor:
     """Fused replacement of the batched full MultimodalGNN forward: the
     frozen encoders run per window node, then the kernel."""
+    _require_noop(model)
     b, n = batch.pose.shape[:2]
     flat = lambda t: t.reshape(b * n, *t.shape[2:])  # noqa: E731
     xi, pn, rn = model.encode_frozen(flat(batch.img), flat(batch.lidar), flat(batch.radar))
@@ -401,6 +410,7 @@ def fused_scores_full(model, batch) -> torch.Tensor:
 
 def fused_logits_pose(model, batch) -> torch.Tensor:
     """Fused replacement of the batched PoseGNN forward: LOGITS [B, E]."""
+    _require_noop(model)
     x0, e0 = model.pre_message_passing(batch)
     flat, meta = extract_mp_params(model, False, model.node_dim, model.edge_dim)
     return fused_mp_scores(

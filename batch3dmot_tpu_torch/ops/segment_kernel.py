@@ -1,0 +1,148 @@
+"""Masked segment sum: the Hopper kernel and its plain PyTorch version
+(counterpart of ``batch3dmot_tpu/ops/pallas_segment.py::segment_sum_pallas``
+and of the ``segment_sum`` it computes, ``batch3dmot_tpu/ops/segment.py``).
+
+The CUDA kernel (``csrc/segment_sum.cu``) replaces the Pallas TPU kernel B8
+(``_make_kernel``); its source note says what bounds it and how the design
+answers that. :func:`segment_sum` is the dispatcher the models call: it
+launches the kernel for CUDA tensors (or raises) and runs
+:func:`segment_sum_plain`, ``index_add_`` over the valid edges, for CPU
+tensors. Both sit behind one ``torch.autograd.Function`` whose backward is
+the masked gather ``grad_data = grad_out[ids] * mask`` (B8 has no backward
+kernel in the JAX package).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+
+from batch3dmot_tpu_torch.ops import cuda_build
+from batch3dmot_tpu_torch.ops.fused_mp import edge_csr, host_ptr, ptr
+
+
+def segment_sum_plain(
+    data: torch.Tensor,
+    ids: torch.Tensor,
+    num_segments: int,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """``index_add_`` of the valid edges only: masked edges are never
+    touched, so they add exactly zero whatever their id or data."""
+    lead = ids.shape[:-1]
+    d = data.shape[-1]
+    nb = math.prod(lead)
+    offsets = torch.arange(nb, device=ids.device).reshape(*lead, 1) * num_segments
+    flat_ids = (ids.long() + offsets).reshape(-1)
+    flat_data = data.reshape(-1, d)
+    if mask is not None:
+        keep = mask.reshape(-1)
+        flat_ids = flat_ids[keep]
+        flat_data = flat_data[keep]
+    out = torch.zeros(nb * num_segments, d, dtype=data.dtype, device=data.device)
+    out.index_add_(0, flat_ids, flat_data)
+    return out.reshape(*lead, num_segments, d)
+
+
+def segment_sum_cuda(
+    data: torch.Tensor,
+    ids: torch.Tensor,
+    num_segments: int,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Launch the Hopper kernel on the current stream: the per-window CSR
+    of the valid edges (stable sort of the ids), then one sum per output
+    element in CSR order."""
+    lead, e = tuple(ids.shape[:-1]), ids.shape[-1]
+    d = data.shape[-1]
+    if (data.device.type != "cuda" or data.dtype != torch.float32
+            or tuple(data.shape) != (*lead, e, d)):
+        raise ValueError(
+            f"segment_sum kernel: data must be float32 {(*lead, e, d)} on cuda, "
+            f"got {data.dtype} {tuple(data.shape)} on {data.device}")
+    if ids.device != data.device or (mask is not None and (
+            mask.device != data.device or mask.shape != ids.shape)):
+        raise ValueError("segment_sum kernel: ids and mask must be [..., E] on the data's device")
+    nb = math.prod(lead)
+    out = torch.empty(*lead, num_segments, d, dtype=torch.float32, device=data.device)
+    if out.numel() == 0:
+        return out
+    idx = ids.reshape(nb, e).to(torch.int32)
+    if mask is not None:
+        idx = torch.where(mask.reshape(nb, e), idx, torch.full_like(idx, -1))
+    off, perm = edge_csr(idx, num_segments)
+    data = data.contiguous()
+    vec4 = d % 4 == 0 and data.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    dims = np.array([nb, num_segments, d, int(vec4)], np.int32)
+    stream = torch.cuda.current_stream(data.device).cuda_stream
+    err = cuda_build.load("segment_sum").segment_sum_forward(
+        host_ptr(dims), ptr(data), ptr(off), ptr(perm), ptr(out),
+        ctypes.c_void_p(stream),
+    )
+    if err != 0:
+        raise RuntimeError(f"segment_sum kernel launch failed: CUDA error {err}")
+    segment_sum.launches += 1
+    return out
+
+
+def gather_segments(x: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Rows of x [..., N, H] at ids [..., E] -> [..., E, H]; ids outside
+    [0, N) are clamped, as a JAX gather clamps them."""
+    n, h = x.shape[-2:]
+    idx = ids.long().clamp(0, n - 1)
+    return torch.gather(x, -2, idx[..., None].expand(*ids.shape, h))
+
+
+def segment_sum_grad(
+    grad_out: torch.Tensor,
+    ids: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The backward of a segment sum: ``grad_out[..., ids, :]`` on valid
+    edges, zero on masked ones."""
+    g = gather_segments(grad_out, ids)
+    if mask is not None:
+        g = g * mask[..., None].to(g.dtype)
+    return g
+
+
+class _SegmentSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, data, ids, num_segments, mask):
+        ctx.save_for_backward(ids, mask)
+        if data.device.type == "cuda":
+            return segment_sum_cuda(data, ids, num_segments, mask)
+        return segment_sum_plain(data, ids, num_segments, mask)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        ids, mask = ctx.saved_tensors
+        return segment_sum_grad(grad_out, ids, mask), None, None, None
+
+
+def segment_sum(
+    data: torch.Tensor,
+    ids: torch.Tensor,
+    num_segments: int,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Sum ``data[..., e, :]`` into ``out[..., ids[..., e], :]`` over the
+    valid edges; differentiable in ``data``.
+
+    data: [..., E, D] float; ids: [..., E] int, in [0, num_segments) on
+    valid edges (on the card an id outside that range is summed into a
+    wrong segment or dropped, never out of bounds: checking would wait for
+    the device); mask: [..., E] bool or None. Leading dimensions are
+    independent windows. CUDA tensors go through the Hopper kernel (a
+    launch failure raises); CPU tensors through :func:`segment_sum_plain`.
+    ``segment_sum.launches`` counts the kernel runs."""
+    if data.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"segment_sum: unsupported device {data.device}")
+    return _SegmentSum.apply(data, ids, num_segments, mask)
+
+
+segment_sum.launches = 0

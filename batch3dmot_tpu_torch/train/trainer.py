@@ -12,7 +12,10 @@ its host-batched path).
     mean BCE by ``gnn.batch_size``;
   * scores: the fused message-passing kernels and their hand-written
     backward on the GPU, autograd through their plain version on the CPU
-    (``ops/fused_mp_train.py``);
+    (``ops/fused_mp_train.py``); a model in ``knn_conv_mode='active'``
+    runs its module loop under autograd instead (the kNN GATConv has no
+    fused kernel; its segment sums and the message passing's go through
+    the segment-sum kernel on the GPU), as the JAX trainer does;
   * metrics: per-batch loss, overall and per-class edge AP on the host,
     nanmean-aggregated per epoch; checkpoints per epoch with AP-stamped
     names.
@@ -95,7 +98,10 @@ class GNNTrainer:
         """(loss, scores [B, E]) of a batch on the device: a PaddedGraph, or
         (PaddedGraph, encodings) from EncodedGraphBatcher."""
         graph, enc = batch if isinstance(batch, tuple) else (batch, None)
-        scores = fused_training_scores(self.model, graph, enc)
+        if self.model.knn_conv_mode == "active":
+            scores = self._module_scores(graph, enc)
+        else:
+            scores = fused_training_scores(self.model, graph, enc)
         weights = (
             graph.edge_weight if self.cfg.loss == "cb"
             else torch.ones_like(graph.edge_weight)
@@ -108,6 +114,13 @@ class GNNTrainer:
             from_logits=self.from_logits,
         )
         return bce / self.cfg.batch_size, scores
+
+    def _module_scores(self, graph, enc):
+        """Scores [B, E] of the module loop (LOGITS for PoseGNN); the frozen
+        encoders run without a graph when no encodings are given."""
+        if enc is None or self.from_logits:
+            return self.model(graph)[0]
+        return self.model.forward_from_encodings(graph, *enc)[0]
 
     def train_step(self, batch):
         """One optimizer step on a host batch; returns (loss, scores) on the

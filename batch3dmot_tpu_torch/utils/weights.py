@@ -13,7 +13,9 @@ a point conv's Dense kernel becomes the upstream ``Conv1d`` weight
 [out, in, 1]; a Conv kernel HWIO becomes OIHW; BatchNorm scale/bias and
 mean/var become weight/bias and running_mean/running_var. The single-token
 attention keeps ``in_proj_weight`` whole [3D, D]: the value slice is
-filled, the query and key slices (which have no effect) are zero.
+filled, the query and key slices (which have no effect) are zero. The kNN
+GATConv of ``knn_conv_mode='active'`` models takes PyG's names: ``lin``
+kernel -> ``lin.weight``, ``att_src``/``att_dst`` [F, 1] -> [1, 1, F].
 """
 
 from __future__ import annotations
@@ -68,6 +70,15 @@ def _attention(out: dict, key: str, p: dict) -> None:
         [np.zeros(2 * d, np.float32), _f32(p["v_proj"]["bias"])]
     )
     _linear(out, f"{key}.out_proj", p["out_proj"])
+
+
+def _gat(out: dict, key: str, p: dict) -> None:
+    """flax GATConv (lin kernel [F, F], att_src / att_dst [F, 1]) onto
+    PyG's names and shapes (lin.weight [F, F], att_* [1, 1, F])."""
+    _linear(out, f"{key}.lin", p["lin"])
+    for name in ("att_src", "att_dst"):
+        out[f"{key}.{name}"] = _f32(p[name]).reshape(1, 1, -1)
+    out[f"{key}.bias"] = _f32(p["bias"])
 
 
 def _resnet(out: dict, p: dict, s: dict) -> None:
@@ -140,6 +151,8 @@ def flax_to_state_dict(variables: Dict[str, Any]) -> Dict[str, np.ndarray]:
             _attention(out, name, p[name])
     for flax_name, torch_name in _MP_NAMES.items():
         _mlp(out, f"message_passing.{torch_name}", p["message_passing"][flax_name])
+    if "knn_conv" in p:  # only models in knn_conv_mode='active' have it
+        _gat(out, "knn_conv", p["knn_conv"])
     return out
 
 

@@ -14,6 +14,11 @@ Phases, each fatal on failure:
      and stashes, and dx0, de0, datt and every weight gradient under a
      random cotangent that is non-zero on every edge, masked ones too; the
      backward run twice must give bit-identical gradients;
+  2c. the segment-sum kernel against its plain version at the shapes of the
+     knn_conv_mode='active' path (message passing, GAT messages and softmax
+     denominators), the largest bucket, an all-padding window and empty
+     segments: forward, bit-identical across two runs, and its backward
+     against autograd of the plain version;
   3. inference path: the ``bench.py`` workload (4 synthetic scenes, 16
      frames, 40 tracks, trainval class mix, window 5, kNN 40) rebuilt from
      the port's modules and driven through ``SceneEncodedScorer.score_scenes``,
@@ -29,9 +34,24 @@ Phases, each fatal on failure:
      checkpoint must load into a fresh model; on one fixed batch, 3 steps
      through the kernels and 3 through the plain version give the same
      losses, and 10 more steps lower the loss;
+  3c. active inference: the same workload through ``score_scenes``,
+     ``predict_scenes``, tracks and AMOTA with a full-width depth-6
+     ``MultimodalGNN(knn_conv_mode='active')``, then an active ``PoseGNN``
+     through ``make_scorer``; 18 segment-sum launches per forward; scores
+     held against the same path with the plain segment sum, window by
+     window, where both picked the same kNN graphs (a window whose graphs
+     differ must show a near-tie at the k-th neighbour; they are counted),
+     and on every window with the kernel run's kNN graphs replayed in the
+     plain run;
+  3d. active training: ``GNNTrainer`` steps for ``mm`` from encodings and
+     ``pose`` from window batches; 18 launches per step, frozen encoders
+     unchanged, 3 steps through the kernel and 3 through the plain version
+     agree, 10 more lower the loss;
   4. timing: each kernel and its plain version with CUDA events on real
      main-path batches (inference, and the training pair at (256, 4096) x8),
-     the train step, the paths' edges/s, and device-time profiles.
+     the train step, the paths' edges/s, and device-time profiles; the
+     segment-sum kernel beside its plain version and ``index_add_``, the
+     active paths' edges/s, profile and train step.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Exits non-zero, without the last
@@ -66,6 +86,9 @@ RTOL, ATOL = 2e-4, 2e-5
 # version's, from a float64 run of the plain version are printed
 GRAD_RTOL, GRAD_ATOL = 5e-3, 2e-4
 MAX_REL_L2 = 1e-2
+# kNN graphs of two runs may differ only where the k-th and (k+1)-th
+# neighbour distances lie within this relative gap (f32 summation orders)
+NEAR_TIE = 1e-4
 FP32_PEAK = 67e12  # H100 SXM float32 FLOP/s outside the tensor cores
 HBM_RATE = 3.35e12  # H100 SXM bytes/s
 TRAINVAL_CLASS_MIX = (
@@ -326,6 +349,185 @@ def profile_device(run):
     return wall_ms, sum(r[0] for r in rows) / 1e3, rows
 
 
+def segment_inputs(rng, lead, n, e, d, empty=False):
+    """data [*lead, E, D], ids [*lead, E] in [0, N - 2] (segment N - 1
+    stays empty) and mask on the card; masked edges carry id 0 and data
+    1e30, which must reach no sum; ``empty`` masks every edge of the first
+    window."""
+    import torch
+
+    data = rng.standard_normal((*lead, e, d)).astype(np.float32)
+    ids = rng.integers(0, n - 1, (*lead, e)).astype(np.int32)
+    mask = rng.random((*lead, e)) < 0.7
+    if empty:
+        mask.reshape(-1, e)[0] = False
+    ids[~mask] = 0
+    data[~mask] = 1e30
+    return tuple(torch.from_numpy(a).cuda() for a in (data, ids, mask))
+
+
+def segment_work(data, ids, mask, n):
+    """(FLOP, bytes) one masked segment sum needs on these inputs: an add
+    per valid element; ids and mask read once, the valid rows of data read
+    once, the output written once."""
+    d = data.shape[-1]
+    valid = int(mask.sum())
+    nbytes = (ids.numel() * ids.element_size() + mask.numel() * mask.element_size()
+              + valid * d * 4 + mask[..., 0].numel() * n * d * 4)
+    return valid * d, nbytes
+
+
+@contextlib.contextmanager
+def plain_segment_sum():
+    """The segment-sum dispatcher runs the plain version on the card
+    (autograd still takes the dispatcher's backward)."""
+    from batch3dmot_tpu_torch.ops import segment_kernel
+
+    kernel = segment_kernel.segment_sum_cuda
+    segment_kernel.segment_sum_cuda = segment_kernel.segment_sum_plain
+    try:
+        yield
+    finally:
+        segment_kernel.segment_sum_cuda = kernel
+
+
+@contextlib.contextmanager
+def capture_knn(store):
+    """Record (x, k, valid, pair_valid, (src, dst, mask)) of every kNN
+    graph the models build."""
+    from batch3dmot_tpu_torch.models import gnn
+
+    build = gnn.knn_graph_masked
+
+    def record(x, k, valid=None, pair_valid=None, loop=False):
+        out = build(x, k, valid=valid, pair_valid=pair_valid, loop=loop)
+        store.append((x.detach().clone(), k, valid, pair_valid, out))
+        return out
+
+    gnn.knn_graph_masked = record
+    try:
+        yield
+    finally:
+        gnn.knn_graph_masked = build
+
+
+@contextlib.contextmanager
+def replay_knn(caps):
+    """The models take the recorded kNN graphs ``caps``, in order, instead
+    of building their own."""
+    from batch3dmot_tpu_torch.models import gnn
+
+    build = gnn.knn_graph_masked
+    recorded = iter(caps)
+    gnn.knn_graph_masked = lambda *args, **kw: next(recorded)[4]
+    try:
+        yield
+    finally:
+        gnn.knn_graph_masked = build
+
+
+def replayed_err(run, kernel):
+    """The plain segment sum's run with the kernel run's kNN graphs
+    replayed, held to the kernel run's scores on every window's valid
+    edges; returns max |kernel - plain|."""
+    import torch
+
+    outs = []
+    with replay_knn(kernel[1]), plain_segment_sum():
+        run(outs)
+    torch.cuda.synchronize()
+    assert len(outs) == len(kernel[0])
+    worst = 0.0
+    for (mask, sk), (_, sp) in zip(kernel[0], outs):
+        valid = mask.to(sk.device)
+        torch.testing.assert_close(sk[valid], sp[valid], rtol=RTOL, atol=ATOL)
+        worst = max(worst, float((sk[valid] - sp[valid]).abs().max()))
+    return worst
+
+
+def active_run(run, plain=False):
+    """(per-forward [(edge_mask, scores)], kNN graphs of every conv) of
+    ``run(outs)``, through the kernel or the plain segment sum."""
+    import torch
+
+    outs, knn = [], []
+    with capture_knn(knn), (plain_segment_sum() if plain else contextlib.nullcontext()):
+        run(outs)
+    torch.cuda.synchronize()
+    return outs, knn
+
+
+def knn_rows(cap, slot):
+    """Window ``slot``'s neighbour set per query node: [N, k] sorted source
+    ids, -1 for a masked edge."""
+    import torch
+
+    x, k, _, _, (src, _, mask) = cap
+    n = x.shape[1]
+    return torch.where(mask[slot], src[slot], -1).view(n, min(k, n)).sort(-1).values
+
+
+def compare_active(kernel, plain, convs):
+    """Holds the kernel run's scores to the plain run's, window by window,
+    where both built the same kNN graphs at every conv; a window whose
+    graphs differ must differ first at rows where the k-th and (k+1)-th
+    allowed distances of the kernel run's x lie within NEAR_TIE of each
+    other (after a flip the window's x legitimately differ). Returns max
+    |kernel - plain| over the agreeing windows' valid edges, the number of
+    windows and the flips (forward, slot, conv, rows, largest gap, largest
+    k-th distance over the window's largest squared norm |x|^2: the f32
+    expansion |x_i|^2 + |x_j|^2 - 2 x_i.x_j rounds at about 1e-7 of it)."""
+    import torch
+
+    from batch3dmot_tpu_torch.ops.knn import pairwise_sq_dists
+
+    (outs_k, knn_k), (outs_p, knn_p) = kernel, plain
+    assert len(outs_k) == len(outs_p) and len(knn_k) == len(knn_p) == convs * len(outs_k)
+    worst, windows, flips = 0.0, 0, []
+    for f, ((mask, sk), (_, sp)) in enumerate(zip(outs_k, outs_p)):
+        for slot in range(mask.shape[0]):
+            windows += 1
+            caps = list(zip(knn_k[f * convs:(f + 1) * convs], knn_p[f * convs:(f + 1) * convs]))
+            rows_k = rows_p = None
+            for conv, (ck, cp) in enumerate(caps):
+                rows_k, rows_p = knn_rows(ck, slot), knn_rows(cp, slot)
+                if not torch.equal(rows_k, rows_p):
+                    break
+            else:
+                valid = mask[slot].to(sk.device)
+                a, b = sk[slot][valid], sp[slot][valid]
+                torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL)
+                if a.numel():
+                    worst = max(worst, float((a - b).abs().max()))
+                continue
+            x, k, node_valid, pair_valid, _ = caps[conv][0]
+            n = x.shape[1]
+            assert k < n, "kNN graphs differ though every allowed neighbour is taken"
+            allowed = (node_valid[slot][None, :] & node_valid[slot][:, None]
+                       & pair_valid[slot] & ~torch.eye(n, dtype=torch.bool, device=x.device))
+            d = torch.where(allowed, pairwise_sq_dists(x[slot]), 1e30).sort(-1).values
+            rows = (rows_k != rows_p).any(-1).nonzero()[:, 0]
+            gaps = ((d[rows, k] - d[rows, k - 1]).abs() / d[rows, k - 1].clamp_min(1e-30))
+            assert float(gaps.max()) <= NEAR_TIE, (f, slot, conv, gaps.tolist())
+            scale = float((x[slot] ** 2).sum(-1).max())
+            flips.append((f, slot, conv, len(rows), float(gaps.max()),
+                          float(d[rows, k - 1].max()) / max(scale, 1e-30)))
+    return worst, windows, flips
+
+
+def flip_summary(flips):
+    """Windows per conv of the first flip, the largest k-th/(k+1)-th gap
+    and the largest k-th distance over |x|^2 among the flips."""
+    if not flips:
+        return "none"
+    per_conv = {}
+    for f in flips:
+        per_conv[f[2]] = per_conv.get(f[2], 0) + 1
+    return (", ".join(f"{v} first at conv {c}" for c, v in sorted(per_conv.items()))
+            + f"; largest gap {max(f[4] for f in flips):.1e}, rows {sum(f[3] for f in flips)}"
+            + f", d_k/|x|^2 up to {max(f[5] for f in flips):.1e}")
+
+
 def main() -> int:
     import torch
 
@@ -335,10 +537,16 @@ def main() -> int:
 
     from batch3dmot_tpu_torch.config import GNNConfig
     from batch3dmot_tpu_torch.graph import pick_bucket
-    from batch3dmot_tpu_torch.infer.predict import SceneEncodedScorer, predict_scenes
+    from batch3dmot_tpu_torch.infer.predict import (
+        SceneEncodedScorer,
+        make_scorer,
+        predict_scenes,
+        score_windows,
+    )
     from batch3dmot_tpu_torch.models import init_params_, make_model
-    from batch3dmot_tpu_torch.ops import cuda_build, fused_mp
+    from batch3dmot_tpu_torch.ops import cuda_build, fused_mp, segment_kernel
     from batch3dmot_tpu_torch.ops.fused_mp import (
+        edge_csr,
         extract_mp_params,
         fused_mp_scores,
         fused_mp_scores_cuda,
@@ -349,6 +557,12 @@ def main() -> int:
         fused_mp_train_scores,
         train_forward_cuda,
     )
+    from batch3dmot_tpu_torch.ops.segment_kernel import (
+        segment_sum,
+        segment_sum_cuda,
+        segment_sum_plain,
+    )
+    from batch3dmot_tpu_torch.train.data import GraphBatcher
     from batch3dmot_tpu_torch.train.encoded import (
         EncodedGraphBatcher,
         precompute_scene_encodings,
@@ -368,7 +582,7 @@ def main() -> int:
     # ---- 1. build -----------------------------------------------------
     nvcc = subprocess.run([cuda_build.nvcc_path(), "--version"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()[-1]
-    report = cuda_build.build(["fused_mp", "fused_mp_train"])
+    report = cuda_build.build(["fused_mp", "fused_mp_train", "segment_sum"])
     for name, r in report.items():
         log(f"build {name}: {r['seconds']:.1f} s ({nvcc})")
         for line in r["log"].splitlines():
@@ -470,6 +684,46 @@ def main() -> int:
                 f"kernel {rk:.3e}, f32 plain {rp:.3e}")
         model.zero_grad(set_to_none=True)
         del inputs, got, ref, g_k, g_p, again
+
+    # ---- 2c. the segment-sum kernel against its plain version ------------
+    # the active path's shapes: mm message passing (D 128), its GAT messages
+    # (D 96) and softmax denominators (D 1) over N * k = 5120 kNN edges, pose
+    # message passing and GAT (D 64, 48), the largest bucket, and windows
+    # with no valid edge next to real ones
+    seg_cases = [
+        ((8,), 256, 4096, 128, False),
+        ((8,), 256, 5120, 96, False),
+        ((8,), 256, 5120, 1, False),
+        ((8,), 128, 1024, 64, False),
+        ((8,), 128, 1024, 48, False),
+        ((8,), 128, 2560, 48, False),
+        ((1,), 1024, 32768, 128, False),
+        ((2,), 64, 512, 128, True),
+    ]
+    seg_err = 0.0
+    for lead, n, e, d, empty in seg_cases:
+        data, ids, mask = segment_inputs(rng, lead, n, e, d, empty)
+        got = segment_sum_cuda(data, ids, n, mask)
+        again = segment_sum_cuda(data, ids, n, mask)
+        ref = segment_sum_plain(data, ids, n, mask)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), "two segment-sum runs differ"
+        torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
+        assert not got[..., n - 1, :].any(), "an empty segment is not 0"
+        if empty:
+            assert not got[0].any(), "the all-padding window is not 0"
+        err = float((got - ref).abs().max())
+        seg_err = max(seg_err, err)
+        x = torch.where(mask[..., None], data, 0.5).requires_grad_()
+        ct = torch.from_numpy(rng.standard_normal((*lead, n, d)).astype(np.float32)).cuda()
+        (g_k,) = torch.autograd.grad(segment_sum(x, ids, n, mask), x, ct)
+        (g_p,) = torch.autograd.grad(segment_sum_plain(x, ids, n, mask), x, ct)
+        torch.cuda.synchronize()
+        assert torch.equal(g_k, g_p), "segment-sum backward differs from autograd of the plain"
+        log(f"kernel segment_sum {lead} N={n} E={e} D={d} empty={empty}: max|kernel-plain| "
+            f"{err:.3e} over {int(mask.sum())} valid edges; bit-identical across two runs; "
+            "backward equals autograd of the plain version")
+        del data, ids, mask, got, again, ref, x, ct, g_k, g_p
 
     # ---- 3. the main path ----------------------------------------------
     items = build_scenes()
@@ -604,6 +858,149 @@ def main() -> int:
         f"{[f'{v:.6f}' for v in lp]}; after 10 more steps {more[-1]:.6f}")
     del tk, tp
 
+    # ---- 3c. active inference: the kNN GATConv path -----------------------
+    # a full-width depth-6 MultimodalGNN in knn_conv_mode='active' (k = 20):
+    # the module loop, where every segment sum (2 per layer, 2 per conv on
+    # layers 0, 2, 4) launches the segment-sum kernel
+    convs = 3
+    active_mm = init_params_(make_model("mm", knn_conv_mode="active"),
+                             torch.Generator().manual_seed(3)).cuda().eval()
+    scorer_a = SceneEncodedScorer(active_mm)
+
+    class RecordingScorer(SceneEncodedScorer):
+        """Records (edge_mask, scores) of every window-batch forward."""
+
+        outs = None
+
+        def _forward(self, batch, det_index, enc):
+            out = super()._forward(batch, det_index, enc)
+            self.outs.append((batch.edge_mask, out))
+            return out
+
+    def mm_run(outs):
+        rec = RecordingScorer(active_mm)
+        rec.outs = outs
+        rec.score_scenes(scenes, windows_list)
+
+    run_k = active_run(mm_run)
+    run_p = active_run(mm_run, plain=True)
+    n_fwd = len(run_k[0])
+    scorer_a.score_scenes(scenes, windows_list)  # warm-up
+    torch.cuda.synchronize()
+    segment_sum.launches = 0
+    t0 = time.perf_counter()
+    start.record()
+    scores_a = scorer_a.score_scenes(scenes, windows_list)
+    end.record()
+    end.synchronize()
+    active_host_ms = (time.perf_counter() - t0) * 1e3
+    active_ms = start.elapsed_time(end)
+    active_launches = segment_sum.launches
+    log(f"active path launches: segment_sum {active_launches} over {n_fwd} forwards")
+    assert active_launches == 18 * n_fwd, (active_launches, n_fwd)
+    preds_a = predict_scenes(scorer_a, items)
+    sub_a, boxes_a, n_tracks_a, res_a = submission_and_amota(items, preds_a)
+    for ws, ss in zip(windows_list, scores_a):
+        for w, sc in zip(ws, ss):
+            assert sc.shape == (w.num_edges,) and np.isfinite(sc).all()
+            assert ((sc >= 0) & (sc <= 1)).all()
+    assert set(sub_a["results"]) == set(sub["results"])
+    assert boxes_a and np.isfinite(res_a.amota)
+    act_err, act_windows, flips = compare_active(run_k, run_p, convs)
+    seg_err = max(seg_err, act_err)
+    log(f"active path: score_scenes {active_ms:.2f} ms (CUDA events), host "
+        f"{active_host_ms:.2f} ms, {n_edges / (active_ms / 1e3):.0f} edges/s; "
+        f"{sum(len(p) for p, _ in preds_a)} predicted edges, {n_tracks_a} tracks, "
+        f"{len(boxes_a)} boxes; AMOTA {res_a.amota:.4f} (untrained random weights)")
+    log(f"active path scores vs the plain segment sum: max|kernel-plain| {act_err:.3e} "
+        f"over {act_windows - len(flips)} of {act_windows} windows with the same kNN "
+        f"graphs; kNN flips at near-ties: {len(flips)} windows ({flip_summary(flips)})")
+    replay_err = replayed_err(mm_run, run_k)
+    seg_err = max(seg_err, replay_err)
+    log(f"active path with the kernel run's kNN graphs replayed in the plain run: "
+        f"max|kernel-plain| {replay_err:.3e} over all {act_windows} windows")
+    del run_k, run_p
+
+    # the windows path: an active PoseGNN through make_scorer
+    active_pose = init_params_(make_model("pose", knn_conv_mode="active"),
+                               torch.Generator().manual_seed(4)).cuda().eval()
+    all_windows = [w for ws in windows_list for w in ws]
+    pose_scorer = make_scorer(active_pose)
+
+    def pose_run(outs):
+        def rec(batch):
+            out = pose_scorer(batch)
+            outs.append((batch.edge_mask, out))
+            return out
+
+        score_windows(rec, all_windows)
+
+    segment_sum.launches = 0
+    run_k = active_run(pose_run)
+    pose_launches = segment_sum.launches
+    run_p = active_run(pose_run, plain=True)
+    assert pose_launches == 18 * len(run_k[0]), (pose_launches, len(run_k[0]))
+    for _, sc in run_k[0]:
+        assert torch.isfinite(sc).all() and ((sc >= 0) & (sc <= 1)).all()
+    pose_err, pose_windows, pose_flips = compare_active(run_k, run_p, convs)
+    seg_err = max(seg_err, pose_err)
+    pose_replay = replayed_err(pose_run, run_k)
+    seg_err = max(seg_err, pose_replay)
+    log(f"active PoseGNN windows path: {len(run_k[0])} forwards, segment_sum launches "
+        f"{pose_launches}; max|kernel-plain| {pose_err:.3e} over "
+        f"{pose_windows - len(pose_flips)} of {pose_windows} windows; kNN flips at "
+        f"near-ties: {len(pose_flips)} windows ({flip_summary(pose_flips)}); with the kNN graphs "
+        f"replayed: max|kernel-plain| {pose_replay:.3e} over all {pose_windows} windows")
+    del run_k, run_p
+
+    # ---- 3d. active training ------------------------------------------------
+    # GNNTrainer steps through the module loop under autograd: mm from the
+    # precomputed encodings ((256, 4096) x2) and pose from window batches
+    # ((128, 1024) x2); the segment sum's backward is a gather
+    active_sd = {k: v.clone() for k, v in active_mm.state_dict().items()}
+    pose_sd = {k: v.clone() for k, v in active_pose.state_dict().items()}
+    encs_a = [precompute_scene_encodings(active_mm, sc) for sc in scenes]
+    pairs_a = [(w, enc) for ws, enc in zip(windows_list, encs_a) for w in ws]
+    small = [w for w in all_windows if pick_bucket(w.num_nodes, w.num_edges) == (128, 1024)]
+    pose_b = GraphBatcher(small, 2, buckets=((128, 1024),), seed=0)
+    active_train = {}
+    for name, sd, batcher in (
+        ("mm", active_sd, EncodedGraphBatcher(pairs_a, 2, seed=0, uniform=True)),
+        ("pose", pose_sd, pose_b),
+    ):
+        batches = list(batcher.epoch())[:4]
+        tr = GNNTrainer(make_model(name, knn_conv_mode="active"), GNNConfig(**clr),
+                        init_state_dict=sd)
+        frozen_a = {k: v.clone() for k, v in tr.model.state_dict().items()
+                    if k.split(".")[0] in FROZEN_ENCODERS}
+        segment_sum.launches = 0
+        losses = [float(tr.train_step(b)[0]) for b in batches]
+        torch.cuda.synchronize()
+        steps_launches = segment_sum.launches
+        assert steps_launches == 18 * len(batches), (name, steps_launches)
+        assert np.isfinite(losses).all(), losses
+        state = tr.model.state_dict()
+        for k, v in frozen_a.items():
+            assert torch.equal(state[k], v), f"frozen {k} moved"
+        batch = batches[0]
+        tk = GNNTrainer(make_model(name, knn_conv_mode="active"), step_cfg, init_state_dict=sd)
+        tp = GNNTrainer(make_model(name, knn_conv_mode="active"), step_cfg, init_state_dict=sd)
+        lk = [float(tk.train_step(batch)[0]) for _ in range(3)]
+        with plain_segment_sum():
+            lp = [float(tp.train_step(batch)[0]) for _ in range(3)]
+        np.testing.assert_allclose(lk, lp, rtol=1e-4)
+        more = [float(tk.train_step(batch)[0]) for _ in range(10)]
+        assert more[-1] < lk[0], (name, lk, more)
+        shape = tuple(batch[0].edge_src.shape if isinstance(batch, tuple)
+                      else batch.edge_src.shape)
+        active_train[name] = (tk, batch)
+        log(f"active training {name}: {len(batches)} steps of {shape}, segment_sum "
+            f"launches {steps_launches}, losses {[f'{v:.6f}' for v in losses]}"
+            + ("; frozen encoders unchanged" if frozen_a else "")
+            + f"; one batch: kernel losses {[f'{v:.6f}' for v in lk]}, plain "
+            f"{[f'{v:.6f}' for v in lp]}; after 10 more steps {more[-1]:.6f}")
+        del tr, tp
+
     # ---- 4. timing -----------------------------------------------------
     # the first full batch of the (256, 4096) bucket, with the inputs the
     # main path gives the kernel (kept from one more run); plain and kernel
@@ -722,6 +1119,80 @@ def main() -> int:
     for us, key, count in rows[:12]:
         log(f"  {us / 1e3:9.3f} ms  x{count:<4d} {key[:90]}")
 
+    # ---- 4c. the segment-sum kernel and the active paths ------------------
+    # the kernel's inputs at the first mm message-passing sum of a (256, 4096)
+    # x8 batch of the active main path (past messages by destination, D 128),
+    # kept from one more run; plain, kernel and index_add_ in turns
+    kept = []
+
+    def keep_segment(data, ids, n, mask=None):
+        if not kept and tuple(data.shape) == (8, 4096, 128):
+            kept.append((data, ids, n, mask))
+        return segment_sum_cuda(data, ids, n, mask)
+
+    segment_kernel.segment_sum_cuda = keep_segment
+    scorer_a.score_scenes(scenes, windows_list)
+    segment_kernel.segment_sum_cuda = segment_sum_cuda
+    (data, ids, n, mask), = kept
+    d = data.shape[-1]
+    offs = torch.arange(8, device=data.device)[:, None] * (n + 1)
+
+    def library():
+        """index_add_ with the masked edges parked in a dropped extra row."""
+        parked = (torch.where(mask, ids.long(), n) + offs).reshape(-1)
+        out = torch.zeros(8 * (n + 1), d, device=data.device)
+        out.index_add_(0, parked, data.reshape(-1, d))
+        return out.view(8, n + 1, d)[:, :n]
+
+    kernel_seg = lambda: segment_sum_cuda(data, ids, n, mask)  # noqa: E731
+    plain_seg = lambda: segment_sum_plain(data, ids, n, mask)  # noqa: E731
+    torch.testing.assert_close(library(), kernel_seg(), rtol=RTOL, atol=ATOL)
+    idx = torch.where(mask, ids, -1)
+    with torch.inference_mode():
+        turns = [cuda_ms(plain_seg, 20), cuda_ms(kernel_seg, 50), cuda_ms(library, 50),
+                 cuda_ms(library, 50), cuda_ms(kernel_seg, 50), cuda_ms(plain_seg, 20)]
+        csr_ms = cuda_ms(lambda: edge_csr(idx, n), 50)
+    seg_ms, seg_plain_ms = (turns[1] + turns[4]) / 2, (turns[0] + turns[5]) / 2
+    seg_lib_ms = (turns[2] + turns[3]) / 2
+    flops, nbytes = segment_work(data, ids, mask, n)
+    seg_bound_ms, seg_bound_by = bound(flops, nbytes)
+    log(f"timing segment_sum at (256, 4096) x8, D=128 ({int(mask.sum())} valid edges, "
+        f"main-path batch): kernel {seg_ms:.4f} ms (of which the CSR build "
+        f"{csr_ms:.4f} ms), plain {seg_plain_ms:.4f} ms, index_add_ {seg_lib_ms:.4f} ms "
+        "(turns plain/kernel/index_add_/index_add_/kernel/plain "
+        + "/".join(f"{t:.4f}" for t in turns) + f" ms), bound {seg_bound_ms:.4f} ms "
+        f"({nbytes / 2**20:.2f} MiB, {flops / 1e6:.2f} MFLOP; {seg_bound_by}), "
+        f"{nbytes / (seg_ms * 1e-3) / 1e9:.1f} GB/s")
+    _, dev_ms, seg_rows = profile_device(lambda: [kernel_seg() for _ in range(20)])
+    log(f"  device time per segment_sum call {dev_ms / 20:.4f} ms: " + "; ".join(
+        f"{us / 1e3 / 20:.4f} ms {key[:48]}" for us, key, _ in seg_rows[:6]))
+    del kept, data, ids, mask, idx
+
+    wall_ms, device_ms, rows = profile_device(
+        lambda: scorer_a.score_scenes(scenes, windows_list))
+    log(f"profile active score_scenes: wall {wall_ms:.2f} ms, device busy {device_ms:.2f} ms "
+        f"({100 * device_ms / wall_ms:.1f}%)")
+    for us, key, count in rows[:12]:
+        log(f"  {us / 1e3:9.3f} ms  x{count:<4d} {key[:90]}")
+    for us, key, count in rows:
+        if "segment_sum" in key or "RadixSort" in key:
+            log(f"  segment sum and CSR sort: {us / 1e3:.3f} ms x{count} {key[:70]}")
+
+    for name, (tk, batch) in active_train.items():
+        def plain_step(tk=tk, batch=batch):
+            with plain_segment_sum():
+                tk.train_step(batch)
+
+        turns_s = [cuda_ms(plain_step, 3), cuda_ms(lambda: tk.train_step(batch), 5),
+                   cuda_ms(lambda: tk.train_step(batch), 5), cuda_ms(plain_step, 3)]
+        graph = batch[0] if isinstance(batch, tuple) else batch
+        log(f"timing active train step {name} (Adam included) at "
+            f"{tuple(graph.edge_src.shape)} ({int(graph.edge_mask.sum())} valid edges): "
+            f"kernel {(turns_s[1] + turns_s[2]) / 2:.3f} ms, plain segment sum "
+            f"{(turns_s[0] + turns_s[3]) / 2:.3f} ms (turns plain/kernel/kernel/plain "
+            + "/".join(f"{t:.3f}" for t in turns_s) + " ms)")
+    del active_train
+
     kernels = [dict(
         name="fused_mp", route="cuda",
         source="batch3dmot_tpu_torch/csrc/fused_mp.cu",
@@ -743,6 +1214,12 @@ def main() -> int:
             max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
             library_ms=None,
         ))
+    kernels.append(dict(
+        name="segment_sum", route="cuda", source="batch3dmot_tpu_torch/csrc/segment_sum.cu",
+        replaces="batch3dmot_tpu/ops/pallas_segment.py:29 (via :56)",
+        launches=active_launches, max_abs_err=seg_err, ms=seg_ms, plain_ms=seg_plain_ms,
+        bound_ms=seg_bound_ms, bound_by=seg_bound_by, library_ms=seg_lib_ms,
+    ))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(f"card: {card}")
     log(json.dumps({"kernels": kernels}))

@@ -223,3 +223,21 @@ def test_packed_weight_blob_layout(name):
     torch.testing.assert_close(array(6, (ed, w["M1"])), fut_w0[nd:nd + ed], rtol=0, atol=0)
     lb3 = model.edge_classifier[6].bias.detach()
     torch.testing.assert_close(array(28, (1,)), lb3, rtol=0, atol=0)
+
+
+def test_fused_entries_refuse_active_knn_conv():
+    """The kernel has no kNN GATConv: its model-level entries refuse a
+    model in knn_conv_mode='active', as the JAX package's do."""
+    from batch3dmot_tpu_torch.ops.fused_mp import (
+        fused_logits_pose,
+        fused_scores_from_encodings,
+        fused_scores_full,
+    )
+
+    mm = make_model("mm", depth=1, knn_conv_mode="active")
+    pose = make_model("pose", depth=1, knn_conv_mode="active")
+    for call in (lambda: fused_scores_full(mm, None),
+                 lambda: fused_scores_from_encodings(mm, None, *[None] * 5),
+                 lambda: fused_logits_pose(pose, None)):
+        with pytest.raises(ValueError, match="knn_conv_mode must be 'noop'"):
+            call()

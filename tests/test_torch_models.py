@@ -174,11 +174,50 @@ def test_registry_matches_flax_parameters(windows, name):
     assert sum(p.numel() for p in tm.parameters()) == n_flax + n_attn_qk
 
 
-def test_active_knn_conv_not_ported():
-    with pytest.raises(NotImplementedError):
-        make_model("mm", knn_conv_mode="active")
-    with pytest.raises(NotImplementedError):
-        make_model("pose", knn_conv_mode="active")
+def test_knn_conv_modes():
+    """'active' models carry the kNN GATConv under PyG's names, 'noop'
+    models have none (the flax tree has it only in active mode), and an
+    unknown mode is refused by the models and by GNNConfig."""
+    from batch3dmot_tpu_torch.config import GNNConfig
+
+    for name in ("mm", "pose"):
+        active = make_model(name, knn_conv_mode="active", knn_conv_k=7)
+        nd = active.node_dim
+        assert active.knn_conv_k == 7
+        shapes = {k: tuple(v.shape) for k, v in active.state_dict().items()
+                  if k.startswith("knn_conv.")}
+        assert shapes == {"knn_conv.lin.weight": (nd, nd), "knn_conv.att_src": (1, 1, nd),
+                          "knn_conv.att_dst": (1, 1, nd), "knn_conv.bias": (nd,)}
+        assert not any(k.startswith("knn_conv") for k in make_model(name).state_dict())
+        with pytest.raises(ValueError, match="knn_conv_mode"):
+            make_model(name, knn_conv_mode="discard")
+    assert GNNConfig(knn_conv_mode="active").knn_conv_k == 20
+    with pytest.raises(ValueError, match="knn_conv_mode"):
+        GNNConfig(knn_conv_mode="discard")
+
+
+_ACTIVE = dict(knn_conv_mode="active", knn_conv_k=4)
+
+
+@pytest.mark.parametrize("name, depth", [("mm", 3), ("pose", 3)])
+def test_active_forward_matches_flax(windows, name, depth):
+    """knn_conv_mode='active' at full widths, depth 3 (kNN GATConv before
+    layers 0 and 2) and k = 4 of at most 5 same-time candidates per node:
+    the module forward (logits for pose) against flax with the weights
+    carried by utils/weights.py, knn_conv included. The windows have no
+    kNN near-tie, so both sides pick the same neighbours."""
+    ws, jb, tb = windows
+    jm = jax_make_model(name, depth=depth, **_ACTIVE)
+    example = jax.tree.map(lambda x: x[0], jb)
+    variables = jax.tree.map(np.asarray, jax.jit(jm.init)(jax.random.key(5), example))
+    assert "knn_conv" in variables["params"]
+    tm = load_flax_variables(make_model(name, depth=depth, **_ACTIVE), variables).eval()
+    with torch.no_grad():
+        got, _ = tm(tb)
+    ref, _ = jax.vmap(lambda g: jm.apply(variables, g))(jb)
+    for k, w in enumerate(ws):
+        np.testing.assert_allclose(got[k, :w.num_edges].numpy(),
+                                   np.asarray(ref)[k, :w.num_edges], rtol=RTOL, atol=ATOL)
 
 
 def test_segment_sum_masked_edges_add_zero():

@@ -1,7 +1,8 @@
 """Import hygiene of the PyTorch port: it imports no JAX, no flax and
 nothing of ``batch3dmot_tpu``, it imports, scores and takes a training
-step without ``nvcc`` or a GPU, and its default-device entry points
-(scorers, trainer) refuse to run on the CPU unless asked to."""
+step without ``nvcc`` or a GPU (in both kNN-conv modes), and its
+default-device entry points (scorers, trainer) refuse to run on the CPU
+unless asked to."""
 
 import os
 import subprocess
@@ -59,6 +60,17 @@ SCRIPT = textwrap.dedent(
     trainer = GNNTrainer(make_model("mm", depth=1), GNNConfig(), device="cpu")
     loss, _ = trainer.train_step(batch)
     assert np.isfinite(float(loss)) and trainer.step == 1
+
+    # knn_conv_mode='active': the module loop with the kNN GATConv
+    active = init_params_(make_model("mm", depth=1, knn_conv_mode="active", knn_conv_k=2),
+                          torch.Generator().manual_seed(1))
+    (_, avg), = predict_scenes(SceneEncodedScorer(active, device="cpu"), [(scene, windows)])
+    assert avg and all(np.isfinite(v) for v in avg.values())
+    trainer = GNNTrainer(make_model("mm", depth=1, knn_conv_mode="active", knn_conv_k=2),
+                         GNNConfig(), device="cpu")
+    loss, _ = trainer.train_step(batch)
+    assert np.isfinite(float(loss))
+    assert trainer.model.knn_conv.lin.weight.grad.abs().sum() > 0
     try:
         GNNTrainer(make_model("pose", depth=1))
     except RuntimeError as err:

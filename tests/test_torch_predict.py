@@ -61,6 +61,17 @@ def _submission(mod, items, preds):
     return mod.assemble_submission(results, tokens)
 
 
+def _example(jax_items):
+    scene, windows = jax_items[0]
+    w = windows[0]
+    return jax_pad(
+        pose=w.pose, edge_src=w.edge_src, edge_dst=w.edge_dst, edge_attr=w.edge_attr,
+        node_time=w.node_time, node_class=w.node_class, max_nodes=64, max_edges=256,
+        img=scene.img[w.det_index], lidar=scene.lidar[w.det_index],
+        radar=scene.radar[w.det_index],
+    )
+
+
 @pytest.fixture(scope="module")
 def predictions():
     items = [
@@ -71,14 +82,7 @@ def predictions():
         (s, list(jax_build(s, 3, JaxGCConfig(top_knn_nodes=5))))
         for s in (jax_scene(seed=k, **SCENE) for k in (10, 11))
     ]
-    scene, windows = jax_items[0]
-    w = windows[0]
-    example = jax_pad(
-        pose=w.pose, edge_src=w.edge_src, edge_dst=w.edge_dst, edge_attr=w.edge_attr,
-        node_time=w.node_time, node_class=w.node_class, max_nodes=64, max_edges=256,
-        img=scene.img[w.det_index], lidar=scene.lidar[w.det_index],
-        radar=scene.radar[w.det_index],
-    )
+    example = _example(jax_items)
     jm = JaxMM()
     variables = jax.tree.map(
         np.asarray, jax.jit(jm.init)(jax.random.key(WEIGHT_SEED), example)
@@ -90,8 +94,7 @@ def predictions():
     return items, jax_items, ref, got
 
 
-def test_scores_and_pred_edges_match(predictions):
-    items, _, ref, got = predictions
+def _check_scores_and_pred_edges(items, ref, got):
     n_edges = 0
     for (scene, _), (r_edges, r_avg), (g_edges, g_avg) in zip(items, ref, got):
         assert r_avg.keys() == g_avg.keys()
@@ -111,6 +114,31 @@ def test_scores_and_pred_edges_match(predictions):
     assert n_edges > 10
 
 
+def test_scores_and_pred_edges_match(predictions):
+    items, _, ref, got = predictions
+    _check_scores_and_pred_edges(items, ref, got)
+
+
+# the frame-wise kNN GATConv: k = 4 of at most 6 same-time candidates, so
+# the k-th neighbour is a real choice; these scenes and weights have no kNN
+# near-tie, so both sides pick the same neighbours
+ACTIVE = dict(knn_conv_mode="active", knn_conv_k=4)
+
+
+def test_active_scores_and_pred_edges_match(predictions):
+    """knn_conv_mode='active': the port's SceneEncodedScorer (the module
+    loop) against the JAX SceneEncodedScorer(fused=False), full width,
+    depth 6: averaged scores and predicted edges."""
+    items, jax_items, _, _ = predictions
+    jm = JaxMM(**ACTIVE)
+    variables = jax.tree.map(
+        np.asarray, jax.jit(jm.init)(jax.random.key(WEIGHT_SEED), _example(jax_items)))
+    ref = jax_predict_scenes(JaxScorer(jm, variables, fused=False), jax_items)
+    port = load_flax_variables(make_model("mm", **ACTIVE), variables)
+    got = predict_scenes(SceneEncodedScorer(port, device="cpu"), items)
+    _check_scores_and_pred_edges(items, ref, got)
+
+
 def test_submission_and_amota_match(predictions):
     items, jax_items, ref, got = predictions
     sub = _submission(tracks, items, got)
@@ -126,19 +154,29 @@ def test_submission_and_amota_match(predictions):
     assert res.amota == ref_res.amota and res.per_class == ref_res.per_class
 
 
+def _windows_scorer_check(predictions, name, **model_kw):
+    items, jax_items, _, _ = predictions
+    windows, jax_windows = items[0][1], jax_items[0][1]
+    jm = jax_make_model(name, **model_kw)
+    variables = jax.tree.map(np.asarray, jax.jit(jm.init)(
+        jax.random.key(WEIGHT_SEED), jax_to_padded(jax_windows[0], 64, 256)))
+    ref = jax_score_windows(jax_make_scorer(jm, variables, fused=False), jax_windows)
+    port = load_flax_variables(make_model(name, **model_kw), variables)
+    got = score_windows(make_scorer(port, device="cpu"), windows)
+    assert sum(len(s) for s in got) > 0
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g, r, rtol=RTOL, atol=ATOL)
+
+
 @pytest.mark.parametrize("name", ["mm", "pose"])
 def test_windows_scorer_matches_jax(predictions, name):
     """The per-window path (``make_scorer``: encoders per window node for
     mm, logits through a sigmoid for pose) against the JAX package's
     ``make_scorer`` on the first scene's windows."""
-    items, jax_items, _, _ = predictions
-    windows, jax_windows = items[0][1], jax_items[0][1]
-    jm = jax_make_model(name)
-    variables = jax.tree.map(np.asarray, jax.jit(jm.init)(
-        jax.random.key(WEIGHT_SEED), jax_to_padded(jax_windows[0], 64, 256)))
-    ref = jax_score_windows(jax_make_scorer(jm, variables, fused=False), jax_windows)
-    port = load_flax_variables(make_model(name), variables)
-    got = score_windows(make_scorer(port, device="cpu"), windows)
-    assert sum(len(s) for s in got) > 0
-    for g, r in zip(got, ref):
-        np.testing.assert_allclose(g, r, rtol=RTOL, atol=ATOL)
+    _windows_scorer_check(predictions, name)
+
+
+def test_active_pose_windows_scorer_matches_jax(predictions):
+    """``make_scorer`` of an active PoseGNN (the module loop, sigmoid of
+    its logits) against the JAX package's on the first scene's windows."""
+    _windows_scorer_check(predictions, "pose", **ACTIVE)

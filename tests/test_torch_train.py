@@ -169,12 +169,15 @@ def test_graph_batcher_matches_jax(scene_windows):
                 np.testing.assert_array_equal(getattr(t, f).numpy(), a, err_msg=f)
 
 
-@pytest.fixture(scope="module")
-def mm_variables(scene_windows):
+# the frame-wise kNN GATConv: k = 3 of at most 5 same-time candidates (6
+# tracks), so the k-th neighbour is a real choice
+ACTIVE = dict(knn_conv_mode="active", knn_conv_k=3)
+
+
+def _mm_variables(windows, **model_kw):
     """flax MultimodalGNN (depth 2) variables with randomised batch-norm
     statistics, so that the encoders' running statistics matter."""
-    scene, windows = scene_windows
-    model = jax_make_model("mm", depth=2)
+    model = jax_make_model("mm", depth=2, **model_kw)
     example = jax_to_padded(windows[0], *BUCKETS[0])
     variables = jax.tree.map(np.asarray, jax.jit(model.init)(jax.random.key(3), example))
     rng = np.random.default_rng(3)
@@ -191,6 +194,16 @@ def mm_variables(scene_windows):
     variables["batch_stats"] = jax.tree_util.tree_map_with_path(
         perturb, variables["batch_stats"])
     return model, variables
+
+
+@pytest.fixture(scope="module")
+def mm_variables(scene_windows):
+    return _mm_variables(scene_windows[1])
+
+
+@pytest.fixture(scope="module")
+def mm_active_variables(scene_windows):
+    return _mm_variables(scene_windows[1], **ACTIVE)
 
 
 def test_precompute_and_encoded_batcher_match_jax(scene_windows, mm_variables):
@@ -228,13 +241,13 @@ def _leaf_close(got, ref, rtol, atol_scale, what):
                                    err_msg=f"{what}: {k}")
 
 
-def _trainers(name, scene_windows, mm_variables, cfg_kw):
+def _trainers(name, scene_windows, mm_variables, cfg_kw, **model_kw):
     """A JAX GNNTrainer(fused=False) and the port's GNNTrainer (CPU) from
     the same weights, and three host batches for each (the same windows)."""
     scene, windows = scene_windows
     jcfg, cfg = JaxGNNConfig(**cfg_kw), GNNConfig(**cfg_kw)
     if name == "pose":
-        jmodel = jax_make_model("pose", depth=2)
+        jmodel = jax_make_model("pose", depth=2, **model_kw)
         example = jax_to_padded(windows[0], *BUCKETS[0])
         jt = JaxTrainer(jmodel, example, jcfg, fused=False, seed=1)
         jbatches = list(JaxGraphBatcher(windows, 2, BUCKETS, seed=3).epoch())[:3]
@@ -249,22 +262,22 @@ def _trainers(name, scene_windows, mm_variables, cfg_kw):
         tbatches = list(EncodedGraphBatcher(pairs, 2, BUCKETS, seed=3, uniform=True).epoch())[:3]
     assert len(jbatches) == 3
     variables = jax.tree.map(np.asarray, jt.variables)
-    port = load_flax_variables(make_model(name, depth=2), variables)
+    port = load_flax_variables(make_model(name, depth=2, **model_kw), variables)
     tt = GNNTrainer(port, cfg, device="cpu", init_state_dict=port.state_dict())
     return jt, tt, jbatches, tbatches
 
 
-@pytest.mark.parametrize("name", ["pose", "mm"])
-def test_trainer_matches_jax(name, scene_windows, mm_variables):
+def _check_trainer(name, scene_windows, mm_variables, **model_kw):
     """Three Adam steps with weight decay 1e-4 from the same weights: the
     losses, the first step's gradient of every trainable leaf, and the
     parameters after the steps (within 2 * lr per step: Adam may flip the
     sign of a step where a gradient is near zero) agree with the JAX
-    trainer's XLA-autodiff path; the frozen encoders do not move at all."""
+    trainer's XLA-autodiff path; the frozen encoders do not move at all.
+    Returns the port's first-step gradients."""
     lr = 1e-4
     jt, tt, jbatches, tbatches = _trainers(
         name, scene_windows, mm_variables,
-        dict(batch_size=2, lr=lr, weight_decay=1e-4, loss="cb"))
+        dict(batch_size=2, lr=lr, weight_decay=1e-4, loss="cb"), **model_kw)
     frozen0 = {k: v.clone() for k, v in tt.model.state_dict().items()
                if k.split(".")[0] in FROZEN}
 
@@ -291,6 +304,27 @@ def test_trainer_matches_jax(name, scene_windows, mm_variables):
         assert torch.equal(tt.model.state_dict()[k], v), f"frozen {k} moved"
     assert all(not p.requires_grad for k, p in tt.model.named_parameters()
                if k.split(".")[0] in FROZEN)
+    return grads
+
+
+@pytest.mark.parametrize("name", ["pose", "mm"])
+def test_trainer_matches_jax(name, scene_windows, mm_variables):
+    """The fused training path (its plain version's autograd on the CPU)
+    against the JAX trainer; see :func:`_check_trainer`."""
+    _check_trainer(name, scene_windows, mm_variables)
+
+
+@pytest.mark.parametrize("name", ["pose", "mm"])
+def test_active_trainer_matches_jax(name, scene_windows, mm_active_variables):
+    """knn_conv_mode='active': the module loop under autograd against the
+    JAX trainer's, knn_conv leaves included; see :func:`_check_trainer`.
+    The scene and weights have no kNN near-tie, so both sides pick the
+    same neighbours in every step."""
+    grads = _check_trainer(name, scene_windows, mm_active_variables, **ACTIVE)
+    knn = {k: g for k, g in grads.items() if k.startswith("knn_conv.")}
+    assert set(knn) == {"knn_conv.lin.weight", "knn_conv.att_src",
+                        "knn_conv.att_dst", "knn_conv.bias"}
+    assert all(np.abs(g).max() > 0 for g in knn.values())
 
 
 def test_save_state_round_trip_and_epoch_checkpoint(tmp_path, scene_windows):
