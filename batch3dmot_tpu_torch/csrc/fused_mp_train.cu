@@ -40,31 +40,94 @@
 // activation and a cotangent held in the workspace; a bias gradient is a
 // column sum. One wgrad_kernel launch per batch of products splits the rows
 // into a fixed number of chunks (at most 64, >= 256 rows each) and writes
-// one 64x64 output tile per (product, tile, chunk) block to a partial
+// one 128x64 output tile per (product, tile, chunk) block to a partial
 // buffer; wgrad_reduce_kernel then sums the chunks in order and adds the
 // result to the gradient blob. No float atomics: the same inputs give
 // bit-identical gradients. The partials hold at most 64 x the weights of
 // one batch (~82 MB at mm widths), never per-block copies of all weights.
 //
-// What bounds it: fp32 FMA work on the CUDA cores, like the forward. Per
-// edge and layer at mm widths the backward recomputes 0.18 MFLOP, runs
-// 0.29 MFLOP of cotangent chain and 0.29 MFLOP of weight products; a
-// (256, 4096) x8 batch at depth 6 is ~150 GFLOP over its padded edges
-// (91 GFLOP over the valid ones, chip_smoke.py train_work) against a few
-// hundred MB of stash and scratch traffic, far above the card's
-// operations-per-byte line. The design keeps every product a block-wide fp32 product from
-// shared memory (the forward's block_gemm, with the transposed weights the
-// wrapper packs) and keeps the sums deterministic; it does not yet use the
-// tensor cores.
+// What bounds it: operations. Per edge and layer at mm widths the backward
+// recomputes 0.18 MFLOP, runs 0.29 MFLOP of cotangent chain and 0.29 MFLOP
+// of weight products; a (256, 4096) x8 batch at depth 6 is ~150 GFLOP over
+// its padded edges (91 GFLOP over the valid ones, chip_smoke.py train_work)
+// against a few hundred MB of stash and scratch traffic, far above the
+// card's operations-per-byte line. So every product of the layer kernels
+// (node_bwd, edge_bwd, node_scatter) and of wgrad_kernel runs on the tensor
+// cores at float32 accuracy (3xTF32 mma.sync, tc_gemm.cuh: three TF32
+// products per step, never a single one). What bounds the kernels now is
+// issue and latency around the products, not the tensor cores themselves:
+// each k-step of a warp loads and splits its fragments before its mma, and
+// a product's weights arrive through two cp.async stages. So:
+//   * edge_bwd_kernel takes 32 edge rows (two m16 tiles) and 16 warps per
+//     block, as many warps as its registers allow (512 threads, at most 128
+//     registers each); shared memory (~207 KB: the padded activations and
+//     cotangents, two weight stages of 32 rows and the split A slices)
+//     holds one block per SM. A weight fragment serves both row tiles.
+//   * node_bwd_kernel and node_scatter_kernel take 16 node rows and 8 warps,
+//     two blocks per SM; their products stage 16 weight rows at a time.
+//   * Each A slice is split into its TF32 parts once per block, not once per
+//     warp, and the workspace rows leave shared memory in coalesced 16-byte
+//     pieces after each product, not from the epilogues.
+//   * wgrad_kernel (8 warps, 128x64 tiles) is held to 80 registers, three
+//     blocks per SM; it stages 32 rows of both operands per step in two
+//     cp.async buffers and maps rows to windows once per stage.
+// The classifier and the initial-x product (cls_bwd_kernel, dx0_kernel,
+// small and once per call) stay on the forward's fp32 block_gemm. The
+// per-node sums (node_scatter_kernel) take a warp per (node, part) with
+// float4 loads, in edge order.
 //
 // Workspace at (1024, 32768) x1 and mm widths (fused_mp_train_workspace):
 // the per-edge recompute and cotangents (h1, h2, f1, p1, dp, df, dp1, df1,
 // due, dh2, dh1: 1856 floats per edge) 243 MB, the classifier's 15 MB,
 // the node projections and node scratch 15 MB, and the partials 82 MB.
 
+#include <algorithm>
+
 #include "mp_common.cuh"
+#include "tc_gemm.cuh"
 
 namespace {
+
+// The edge side takes 32 edge rows (two m16 tiles) per block and 16 warps,
+// with two weight stages of 32 rows; the node kernels 16 rows, NB_WARPS
+// warps and two stages of 16 rows.
+constexpr int EB_MT = 2, EB_WARPS = 16, EB_KC = 32, EB_STAGES = 2;
+constexpr int EB_ROWS = 16 * EB_MT, EB_NT = 32 * EB_WARPS;
+constexpr int EB_SW = tc_stage_floats<EB_KC, EB_STAGES>() + tc_split_floats<EB_MT, EB_KC>();
+constexpr int NB_WARPS = 8, NB_NT = 32 * NB_WARPS;
+
+constexpr int NB_KC = 16, NB_STAGES = 2;
+constexpr int NB_SW = tc_stage_floats<NB_KC, NB_STAGES>() + tc_split_floats<1, NB_KC>();
+
+template <class Epi>
+__device__ __forceinline__ void edge_gemm(const float* sA, int lda, int K,
+                                          const float* __restrict__ W, int N,
+                                          float* sW, Epi epi) {
+  tc_gemm<EB_MT, EB_WARPS, EB_KC, EB_STAGES>(
+      sA, lda, K, W, N, N, sW, sW + tc_stage_floats<EB_KC, EB_STAGES>(), epi);
+}
+
+template <class Epi>
+__device__ __forceinline__ void node_gemm(const float* sA, int lda, int K,
+                                          const float* __restrict__ W, int N,
+                                          float* sW, Epi epi) {
+  tc_gemm<1, NB_WARPS, NB_KC, NB_STAGES>(
+      sA, lda, K, W, N, N, sW, sW + tc_stage_floats<NB_KC, NB_STAGES>(), epi);
+}
+
+// Rows [0, n) of the shared array s (row stride ls) to g (row stride W,
+// a multiple of 4) in coalesced 16-byte pieces: the layer kernels write
+// their workspace rows this way, not element by element from the product
+// epilogues (whose fragment layout scatters the stores).
+__device__ __forceinline__ void store_rows(const float* s, int ls, float* g,
+                                           int W, int n) {
+  const int q = W >> 2;
+  for (int i = threadIdx.x; i < n * q; i += blockDim.x) {
+    const int r = i / q, c = 4 * (i - r * q);
+    *reinterpret_cast<float4*>(g + (size_t)r * W + c) =
+        *reinterpret_cast<const float4*>(s + r * ls + c);
+  }
+}
 
 // Transposed weights ([out, in]) the backward multiplies by, packed by the
 // wrapper in this order (ops/fused_mp_train.py::_TRANSPOSED).
@@ -227,85 +290,95 @@ cls_bwd_kernel(Params p, TParams q, const float* __restrict__ e_fin,
 
 // Recompute c1, c2 from the stashed message sums, then the combine MLP's
 // backward: dc2 = (dX C2^T) * [c2 > 0], dc1 = (dc2 C1^T) * [c1 > 0],
-// [dA | dB] = dc1 C0^T. dX is the cotangent of x_{t+1}.
-__global__ void __launch_bounds__(NT, 2)
+// [dA | dB] = dc1 C0^T. dX is the cotangent of x_{t+1}. Every product on
+// the tensor cores (tc_gemm.cuh); activations padded by TC_PAD per row;
+// the workspace rows leave shared memory in coalesced pieces.
+__global__ void __launch_bounds__(NB_NT, 2)
 node_bwd_kernel(Params p, TParams q, const float* __restrict__ agg,
                 long long agg_win, const float* __restrict__ dX, Work w) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const int rows = NODE_ROWS;
   const int M2 = 2 * p.M, C1 = p.C1, C2 = p.C2, nd = p.nd;
-  float* sAgg = smem;
-  float* sC1 = sAgg + rows * M2;
-  float* sC2 = sC1 + rows * C1;
-  float* sDX = sC2 + rows * C2;
-  float* sW = sDX + rows * nd;
+  const int lAgg = M2 + TC_PAD, lC1 = C1 + TC_PAD, lC2 = C2 + TC_PAD;
+  const int lDX = nd + TC_PAD;
+  float* sW = smem;
+  float* sAgg = sW + NB_SW;  // the message sums, then [dA | dB]
+  float* sC1 = sAgg + rows * lAgg;
+  float* sC2 = sC1 + rows * lC1;
+  float* sDX = sC2 + rows * lC2;
   const int b = blockIdx.y, n0 = blockIdx.x * rows;
   const size_t row0 = (size_t)b * p.N + n0;
-  auto ok = [&](int r) { return n0 + r < p.N; };
+  const int nv = min(rows, p.N - n0);
   for (int t = threadIdx.x; t < rows * M2; t += blockDim.x) {
     const int r = t / M2;
-    sAgg[t] = ok(r) ? agg[b * agg_win + (size_t)n0 * M2 + t] : 0.f;
+    sAgg[r * lAgg + t - r * M2] =
+        r < nv ? agg[b * agg_win + (size_t)n0 * M2 + t] : 0.f;
   }
   for (int t = threadIdx.x; t < rows * nd; t += blockDim.x) {
     const int r = t / nd;
-    sDX[t] = ok(r) ? dX[row0 * nd + t] : 0.f;
+    sDX[r * lDX + t - r * nd] = r < nv ? dX[row0 * nd + t] : 0.f;
   }
   __syncthreads();
-  block_gemm<NODE_TM>(sAgg, M2, M2, p.C0, C1, C1, sW, [&](int r, int c, float v) {
-    v = fmaxf(v + p.cb0[c], 0.f);
-    sC1[r * C1 + c] = v;
-    if (ok(r)) w.c1[(row0 + r) * C1 + c] = v;
+  node_gemm(sAgg, lAgg, M2, p.C0, C1, sW, [&](int r, int c, float v) {
+    sC1[r * lC1 + c] = fmaxf(v + p.cb0[c], 0.f);
   });
-  block_gemm<NODE_TM>(sC1, C1, C1, p.C1w, C2, C2, sW, [&](int r, int c, float v) {
-    v = fmaxf(v + p.cb1[c], 0.f);
-    sC2[r * C2 + c] = v;
-    if (ok(r)) w.c2[(row0 + r) * C2 + c] = v;
+  store_rows(sC1, lC1, w.c1 + row0 * C1, C1, nv);
+  node_gemm(sC1, lC1, C1, p.C1w, C2, sW, [&](int r, int c, float v) {
+    sC2[r * lC2 + c] = fmaxf(v + p.cb1[c], 0.f);
   });
+  store_rows(sC2, lC2, w.c2 + row0 * C2, C2, nv);
   // the masks are read and overwritten element by element: sC2 becomes
   // dc2, sC1 becomes dc1
-  block_gemm<NODE_TM>(sDX, nd, nd, q.C2wT, C2, C2, sW, [&](int r, int c, float v) {
-    v = sC2[r * C2 + c] > 0.f ? v : 0.f;
-    sC2[r * C2 + c] = v;
-    if (ok(r)) w.dc2[(row0 + r) * C2 + c] = v;
+  node_gemm(sDX, lDX, nd, q.C2wT, C2, sW, [&](int r, int c, float v) {
+    float& m = sC2[r * lC2 + c];
+    m = m > 0.f ? v : 0.f;
   });
-  block_gemm<NODE_TM>(sC2, C2, C2, q.C1wT, C1, C1, sW, [&](int r, int c, float v) {
-    v = sC1[r * C1 + c] > 0.f ? v : 0.f;
-    sC1[r * C1 + c] = v;
-    if (ok(r)) w.dc1[(row0 + r) * C1 + c] = v;
+  store_rows(sC2, lC2, w.dc2 + row0 * C2, C2, nv);
+  node_gemm(sC2, lC2, C2, q.C1wT, C1, sW, [&](int r, int c, float v) {
+    float& m = sC1[r * lC1 + c];
+    m = m > 0.f ? v : 0.f;
   });
-  block_gemm<NODE_TM>(sC1, C1, C1, q.C0T, M2, M2, sW, [&](int r, int c, float v) {
-    if (ok(r)) w.dab[(row0 + r) * M2 + c] = v;
+  store_rows(sC1, lC1, w.dc1 + row0 * C1, C1, nv);
+  node_gemm(sC1, lC1, C1, q.C0T, M2, sW, [&](int r, int c, float v) {
+    sAgg[r * lAgg + c] = v;
   });
+  store_rows(sAgg, lAgg, w.dab + row0 * M2, M2, nv);
 }
 
-// Recompute one layer's edge side and back-propagate through it. 16 edge
-// rows per block keep the recomputed activations and the cotangents of a
-// block (~70 KB) in shared memory with two blocks per SM. dUE holds the
-// cotangent of e_{t+1} on entry and that of e_t on return (each block
-// reads its rows before it overwrites them).
-__global__ void __launch_bounds__(NT, 2)
+// Recompute one layer's edge side and back-propagate through it, EB_ROWS
+// edge rows per block. The recomputed activations and the cotangents of a
+// block stay in shared memory (~126 KB at 32 rows and mm widths, with the
+// padding; the input rows and the gathered dp/df share one array), beside
+// the weight stages and the split A slices. Each product's epilogue writes shared memory only; the
+// workspace rows that the weight products read go to device memory after
+// it, in coalesced row pieces (store_rows). dUE holds the cotangent of
+// e_{t+1} on entry and that of e_t on return (each block reads its rows
+// before it overwrites them). Every product on the tensor cores.
+__global__ void __launch_bounds__(EB_NT, 1)
 edge_bwd_kernel(Params p, TParams q, const float* __restrict__ npb_all,
                 const float* __restrict__ e_t, const float* __restrict__ e_next,
                 long long e_win, const float* __restrict__ att,
                 const int* __restrict__ src, const int* __restrict__ dst,
                 float* dUE, float* __restrict__ datt, Work w) {
-  extern __shared__ float smem[];
-  const int rows = NODE_ROWS;
+  extern __shared__ __align__(16) float smem[];
+  const int rows = EB_ROWS;
   const int ed = p.ed, ea_w = ed * (p.with_att ? 2 : 1);
   const int H1 = p.H1, H2 = p.H2, M1 = p.M1, M = p.M, PW = p.PW;
-  int* sSrc = reinterpret_cast<int*>(smem);
+  const int lA = max(ea_w, M) + TC_PAD, lH1 = H1 + TC_PAD, lH2 = H2 + TC_PAD;
+  const int lU = ed + TC_PAD, lM1 = M1 + TC_PAD;
+  float* sW = smem;
+  float* sA = sW + EB_SW;  // [e_t | att], then dp and df, then [de | datt]
+  float* sH1 = sA + rows * lA;
+  float* sH2 = sH1 + rows * lH1;
+  float* sU = sH2 + rows * lH2;
+  float* sF1 = sU + rows * lU;
+  float* sP1 = sF1 + rows * lM1;
+  int* sSrc = reinterpret_cast<int*>(sP1 + rows * lM1);
   int* sDst = sSrc + rows;
-  float* sA = smem + 2 * rows;
-  float* sH1 = sA + rows * ea_w;
-  float* sH2 = sH1 + rows * H1;
-  float* sU = sH2 + rows * H2;
-  float* sF1 = sU + rows * ed;
-  float* sP1 = sF1 + rows * M1;
-  float* sG = sP1 + rows * M1;
-  float* sW = sG + rows * M;
   const int b = blockIdx.y, e0 = blockIdx.x * rows;
   const size_t row0 = (size_t)b * p.E + e0;
-  auto ok = [&](int r) { return e0 + r < p.E; };
+  const int nv = min(rows, p.E - e0);  // rows of real edges
+  auto ok = [&](int r) { return r < nv; };
   const float* et = e_t + b * e_win + (size_t)e0 * ed;
   const float* en = e_next + b * e_win + (size_t)e0 * ed;
   for (int r = threadIdx.x; r < rows; r += blockDim.x) {
@@ -317,135 +390,177 @@ edge_bwd_kernel(Params p, TParams q, const float* __restrict__ npb_all,
     float v = 0.f;
     if (ok(r))
       v = c < ed ? et[(size_t)r * ed + c] : att[(row0 + r) * ed + c - ed];
-    sA[t] = v;
+    sA[r * lA + c] = v;
   }
   for (int t = threadIdx.x; t < rows * ed; t += blockDim.x) {
     const int r = t / ed;
-    sU[t] = ok(r) ? en[t] : 0.f;
+    sU[r * lU + t - r * ed] = ok(r) ? en[t] : 0.f;
   }
   __syncthreads();
   const float* npb = npb_all + (size_t)b * p.N * PW;
 
-  // ---- recompute (the forward's arithmetic, in the same order) ----
-  block_gemm<NODE_TM>(sA, ea_w, ea_w, p.Wea, H1, H1, sW, [&](int r, int c, float v) {
+  // ---- recompute the edge side of the forward ----
+  edge_gemm(sA, lA, ea_w, p.Wea, H1, sW, [&](int r, int c, float v) {
     v += p.eb0[c];
     const int i = sDst[r], j = sSrc[r];
     if (i >= 0) v += npb[(size_t)i * PW + p.o_eui + c];
     if (j >= 0) v += npb[(size_t)j * PW + p.o_euj + c];
-    v = fmaxf(v, 0.f);
-    sH1[r * H1 + c] = v;
-    if (ok(r)) w.h1[(row0 + r) * H1 + c] = v;
+    sH1[r * lH1 + c] = fmaxf(v, 0.f);
   });
-  block_gemm<NODE_TM>(sH1, H1, H1, p.W1, H2, H2, sW, [&](int r, int c, float v) {
-    v = fmaxf(v + p.b1[c], 0.f);
-    sH2[r * H2 + c] = v;
-    if (ok(r)) w.h2[(row0 + r) * H2 + c] = v;
+  store_rows(sH1, lH1, w.h1 + row0 * H1, H1, nv);
+  edge_gemm(sH1, lH1, H1, p.W1, H2, sW, [&](int r, int c, float v) {
+    sH2[r * lH2 + c] = fmaxf(v + p.b1[c], 0.f);
   });
-  block_gemm<NODE_TM>(sU, ed, ed, p.Fue, M1, M1, sW, [&](int r, int c, float v) {
+  store_rows(sH2, lH2, w.h2 + row0 * H2, H2, nv);
+  edge_gemm(sU, lU, ed, p.Fue, M1, sW, [&](int r, int c, float v) {
     v += p.fb0[c];
     const int i = sDst[r];
     if (i >= 0) {
       const float* n = npb + (size_t)i * PW;
       v += n[p.o_fut + c] + n[p.o_fx0 + c];
     }
-    v = fmaxf(v, 0.f);
-    sF1[r * M1 + c] = v;
-    if (ok(r)) w.f1[(row0 + r) * M1 + c] = v;
+    sF1[r * lM1 + c] = fmaxf(v, 0.f);
   });
-  block_gemm<NODE_TM>(sU, ed, ed, p.Pue, M1, M1, sW, [&](int r, int c, float v) {
+  edge_gemm(sU, lU, ed, p.Pue, M1, sW, [&](int r, int c, float v) {
     v += p.pb0[c];
     const int j = sSrc[r];
     if (j >= 0) {
       const float* n = npb + (size_t)j * PW;
       v += n[p.o_past + c] + n[p.o_px0 + c];
     }
-    v = fmaxf(v, 0.f);
-    sP1[r * M1 + c] = v;
-    if (ok(r)) w.p1[(row0 + r) * M1 + c] = v;
+    sP1[r * lM1 + c] = fmaxf(v, 0.f);
   });
+  store_rows(sF1, lM1, w.f1 + row0 * M1, M1, nv);
+  store_rows(sP1, lM1, w.p1 + row0 * M1, M1, nv);
 
   // ---- past message: dp = dA[dst], dp1 = (dp P1^T) * [p1 > 0] ----
   const float* dab = w.dab + (size_t)b * p.N * 2 * M;
   for (int t = threadIdx.x; t < rows * M; t += blockDim.x) {
     const int r = t / M, c = t - r * M, i = sDst[r];
     const float v = i >= 0 ? dab[(size_t)i * 2 * M + c] : 0.f;
-    sG[t] = v;
+    sA[r * lA + c] = v;
     if (ok(r)) w.dp[(row0 + r) * M + c] = v;
   }
-  block_gemm<NODE_TM>(sG, M, M, q.P1T, M1, M1, sW, [&](int r, int c, float v) {
-    v = sP1[r * M1 + c] > 0.f ? v : 0.f;
-    sP1[r * M1 + c] = v;
-    if (ok(r)) w.dp1[(row0 + r) * M1 + c] = v;
+  __syncthreads();
+  edge_gemm(sA, lA, M, q.P1T, M1, sW, [&](int r, int c, float v) {
+    float& m = sP1[r * lM1 + c];
+    m = m > 0.f ? v : 0.f;
   });
+  store_rows(sP1, lM1, w.dp1 + row0 * M1, M1, nv);
   // ---- future message: df = dB[src], df1 = (df F1^T) * [f1 > 0] ----
   for (int t = threadIdx.x; t < rows * M; t += blockDim.x) {
     const int r = t / M, c = t - r * M, j = sSrc[r];
     const float v = j >= 0 ? dab[(size_t)j * 2 * M + M + c] : 0.f;
-    sG[t] = v;
+    sA[r * lA + c] = v;
     if (ok(r)) w.df[(row0 + r) * M + c] = v;
   }
-  block_gemm<NODE_TM>(sG, M, M, q.F1T, M1, M1, sW, [&](int r, int c, float v) {
-    v = sF1[r * M1 + c] > 0.f ? v : 0.f;
-    sF1[r * M1 + c] = v;
-    if (ok(r)) w.df1[(row0 + r) * M1 + c] = v;
+  __syncthreads();
+  edge_gemm(sA, lA, M, q.F1T, M1, sW, [&](int r, int c, float v) {
+    float& m = sF1[r * lM1 + c];
+    m = m > 0.f ? v : 0.f;
   });
+  store_rows(sF1, lM1, w.df1 + row0 * M1, M1, nv);
   // ---- edge update: due = dp1 Pue^T + df1 Fue^T + dUE ----
-  block_gemm<NODE_TM>(sP1, M1, M1, q.PueT, ed, ed, sW, [&](int r, int c, float v) {
-    sU[r * ed + c] = v + (ok(r) ? dUE[(row0 + r) * ed + c] : 0.f);
+  edge_gemm(sP1, lM1, M1, q.PueT, ed, sW, [&](int r, int c, float v) {
+    sU[r * lU + c] = v + (ok(r) ? dUE[(row0 + r) * ed + c] : 0.f);
   });
-  block_gemm<NODE_TM>(sF1, M1, M1, q.FueT, ed, ed, sW, [&](int r, int c, float v) {
-    v += sU[r * ed + c];
-    sU[r * ed + c] = v;
-    if (ok(r)) w.due[(row0 + r) * ed + c] = v;
+  edge_gemm(sF1, lM1, M1, q.FueT, ed, sW, [&](int r, int c, float v) {
+    sU[r * lU + c] += v;
   });
-  block_gemm<NODE_TM>(sU, ed, ed, q.W2T, H2, H2, sW, [&](int r, int c, float v) {
-    v = sH2[r * H2 + c] > 0.f ? v : 0.f;
-    sH2[r * H2 + c] = v;
-    if (ok(r)) w.dh2[(row0 + r) * H2 + c] = v;
+  store_rows(sU, lU, w.due + row0 * ed, ed, nv);
+  edge_gemm(sU, lU, ed, q.W2T, H2, sW, [&](int r, int c, float v) {
+    float& m = sH2[r * lH2 + c];
+    m = m > 0.f ? v : 0.f;
   });
-  block_gemm<NODE_TM>(sH2, H2, H2, q.W1T, H1, H1, sW, [&](int r, int c, float v) {
-    v = sH1[r * H1 + c] > 0.f ? v : 0.f;
-    sH1[r * H1 + c] = v;
-    if (ok(r)) w.dh1[(row0 + r) * H1 + c] = v;
+  store_rows(sH2, lH2, w.dh2 + row0 * H2, H2, nv);
+  edge_gemm(sH2, lH2, H2, q.W1T, H1, sW, [&](int r, int c, float v) {
+    float& m = sH1[r * lH1 + c];
+    m = m > 0.f ? v : 0.f;
   });
+  store_rows(sH1, lH1, w.dh1 + row0 * H1, H1, nv);
   // ---- [de | datt] = dh1 [We | Watt]^T ----
-  block_gemm<NODE_TM>(sH1, H1, H1, q.WeaT, ea_w, ea_w, sW, [&](int r, int c, float v) {
-    if (!ok(r)) return;
-    if (c < ed) dUE[(row0 + r) * ed + c] = v;
-    else datt[(row0 + r) * ed + c - ed] += v;
+  edge_gemm(sH1, lH1, H1, q.WeaT, ea_w, sW, [&](int r, int c, float v) {
+    sA[r * lA + c] = v;
   });
+  store_rows(sA, lA, dUE + row0 * ed, ed, nv);
+  if (datt) {
+    for (int i = threadIdx.x; i < nv * ed; i += blockDim.x) {
+      const int r = i / ed, c = i - r * ed;
+      datt[(row0 + r) * ed + c] += sA[r * lA + ed + c];
+    }
+  }
 }
 
-// Per-node sums of the edge cotangents over the forward's CSRs (edge order:
-// deterministic), dX_t = S Wp[:, :QW]^T, and T += the initial-x part.
-__global__ void __launch_bounds__(NT, 2)
+// Per-node sums of the edge cotangents over the forward's CSRs, S = [sum
+// by dst of dh1 | by src of dh1 | by dst of df1 | by src of dp1], then
+// dX_t = S Wp[:, :QW]^T and T += the initial-x part. A warp takes one
+// (node, part): it reads the CSR row's offsets once and walks its edges in
+// order, lanes across 4-column groups (float4 loads, up to two groups a
+// lane), so each sum starts at 0 and adds in edge order as before: the
+// same S bit for bit. The product runs on the tensor cores.
+__global__ void __launch_bounds__(NB_NT, 2)
 node_scatter_kernel(Params p, TParams q, const int* __restrict__ doff,
                     const int* __restrict__ dperm, const int* __restrict__ soff,
                     const int* __restrict__ sperm, Work w,
                     float* __restrict__ dX_out) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const int rows = NODE_ROWS;
-  const int H1 = p.H1, M1 = p.M1, QW = p.QW, nd = p.nd;
-  float* sS = smem;
-  float* sW = sS + rows * QW;
+  const int H1 = p.H1, M1 = p.M1, QW = p.QW, nd = p.nd, lS = QW + TC_PAD;
+  float* sW = smem;
+  float* sS = sW + NB_SW;
   const int b = blockIdx.y, n0 = blockIdx.x * rows;
   const size_t row0 = (size_t)b * p.N + n0;
-  for (int t = threadIdx.x; t < rows * QW; t += blockDim.x) {
-    const int r = t / QW, c = t - r * QW, n = n0 + r;
-    float v = 0.f;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int task = warp; task < rows * 4; task += NB_WARPS) {
+    const int r = task >> 2, part = task & 3, n = n0 + r;
+    const bool by_dst = part == 0 || part == 2;
+    const float* v = part < 2 ? w.dh1 : part == 2 ? w.df1 : w.dp1;
+    const int width = part < 2 ? H1 : M1;
+    const int col0 = part == 0 ? 0 : part == 1 ? H1 : part == 2 ? 2 * H1 : 2 * H1 + M1;
+    int q0 = 0, q1 = 0;
     if (n < p.N) {
+      const int* off = by_dst ? doff : soff;
       const int k = b * (p.N + 1) + n;
-      if (c < H1) v = csr_sum(w.dh1, H1, c, doff, dperm, k);
-      else if (c < 2 * H1) v = csr_sum(w.dh1, H1, c - H1, soff, sperm, k);
-      else if (c < 2 * H1 + M1) v = csr_sum(w.df1, M1, c - 2 * H1, doff, dperm, k);
-      else v = csr_sum(w.dp1, M1, c - 2 * H1 - M1, soff, sperm, k);
-      w.S[(row0 + r) * QW + c] = v;
-      if (c >= 2 * H1) w.T[(row0 + r) * 2 * M1 + c - 2 * H1] += v;
+      q0 = off[k];
+      q1 = off[k + 1];
     }
-    sS[t] = v;
+    const int* perm = by_dst ? dperm : sperm;
+    const int w4 = width >> 2;
+    for (int g0 = 0; g0 < w4; g0 += 64) {
+      const int ga = g0 + lane, gb = ga + 32;
+      float4 sa = zero, sb = zero;
+      for (int qq = q0; qq < q1; ++qq) {
+        const float4* row = reinterpret_cast<const float4*>(v + (size_t)perm[qq] * width);
+        if (ga < w4) {
+          const float4 x = row[ga];
+          sa.x += x.x; sa.y += x.y; sa.z += x.z; sa.w += x.w;
+        }
+        if (gb < w4) {
+          const float4 x = row[gb];
+          sb.x += x.x; sb.y += x.y; sb.z += x.z; sb.w += x.w;
+        }
+      }
+      const int gs[2] = {ga, gb};
+      const float4 ss[2] = {sa, sb};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (gs[h] >= w4) continue;
+        const int c = col0 + 4 * gs[h];
+        *reinterpret_cast<float4*>(sS + r * lS + c) = ss[h];
+        if (n >= p.N) continue;
+        *reinterpret_cast<float4*>(w.S + (row0 + r) * QW + c) = ss[h];
+        if (c >= 2 * H1) {
+          float4* t4 = reinterpret_cast<float4*>(w.T + (row0 + r) * 2 * M1 + c - 2 * H1);
+          float4 t = *t4;
+          t.x += ss[h].x; t.y += ss[h].y; t.z += ss[h].z; t.w += ss[h].w;
+          *t4 = t;
+        }
+      }
+    }
   }
   __syncthreads();
-  block_gemm<NODE_TM>(sS, QW, QW, q.WpT, nd, nd, sW, [&](int r, int c, float v) {
+  node_gemm(sS, lS, QW, q.WpT, nd, sW, [&](int r, int c, float v) {
     if (n0 + r < p.N) dX_out[(row0 + r) * nd + c] = v;
   });
 }
@@ -478,17 +593,26 @@ dx0_kernel(Params p, TParams q, Work w, const float* __restrict__ dX0,
 // ---------------------------------------------------------------------------
 
 constexpr int WG_MAX = 24;  // products per batch
-constexpr int WG_TILE = 64, WG_ROWS = 32, WG_NT = 256;
+// Output tile of a block: 128 (k) x 64 (f), 8 warps of 32 x 32 (2 m16 x 4
+// n8 tiles each); rows stream in stages of 32 through two cp.async buffers
+// whose row strides (136, 72 floats) are 8 mod 32: the fragment reads are
+// free of bank conflicts.
+constexpr int WG_TK = 128, WG_TF = 64, WG_RS = 32, WG_NT = 256;
+constexpr int WG_LA = WG_TK + 8, WG_LD = WG_TF + 8;
+constexpr int WG_SMEM = 2 * WG_RS * (WG_LA + WG_LD) * (int)sizeof(float);
 
 // out[k * ldo + f] += sum_r A[r, k] D[r, f] over R rows; row r is row
 // r % per_win of window r / per_win, at base + window * win + row * ld.
-// A null: a column of ones (a bias gradient, K = 1).
+// A null: a bias gradient (K = 1), the column sums of D. vec_a / vec_d:
+// rows and row starts are 16-byte aligned and the widths multiples of 4, so
+// a stage is copied in 16-byte pieces.
 struct WGDesc {
   const float* A;
   const float* D;
   float* out;
   long long a_win, d_win, poff;
   int lda, ldd, ldo, K, F, per_win, R, chunks, tiles_f, block0, elem0;
+  int vec_a, vec_d;
 };
 
 struct WGBatch {
@@ -496,64 +620,173 @@ struct WGBatch {
   int n, blocks, elems;
 };
 
-__global__ void __launch_bounds__(WG_NT)
+// Window and row of descriptor row r.
+struct RowPos {
+  int win, ri;
+  __device__ __forceinline__ void at(int r, int per_win) {
+    win = r / per_win;
+    ri = r - win * per_win;
+  }
+  __device__ __forceinline__ void advance(int by, int per_win) {
+    ri += by;
+    while (ri >= per_win) {
+      ri -= per_win;
+      ++win;
+    }
+  }
+};
+
+// Stage rows [r, r + WG_RS) of an operand (columns c0 .. c0 + width of a
+// [rows, cols] matrix) into s [WG_RS][ld]; rows past r_hi and columns past
+// cols are zero. pos[i] is the window position of row rr0 + i * step, the
+// rows this thread copies (vector path); advanced by WG_RS afterwards.
+template <int WIDTH, int LD, int NPOS>
+__device__ __forceinline__ void wg_stage(float* s, const float* __restrict__ base,
+                                         long long win_stride, int ld, int cols,
+                                         int c0, int vec, int r, int r_hi,
+                                         int per_win, RowPos (&pos)[NPOS]) {
+  constexpr int Q = WIDTH / 4;              // float4 per row
+  constexpr int STEP = WG_NT / Q;           // rows per pass
+  const int rr0 = threadIdx.x / Q, c = 4 * (threadIdx.x % Q);
+  if (vec) {
+#pragma unroll
+    for (int i = 0; i < NPOS; ++i) {
+      const int rr = rr0 + i * STEP;
+      float* dst = s + rr * LD + c;
+      if (r + rr < r_hi && c0 + c < cols)
+        __pipeline_memcpy_async(
+            dst, base + pos[i].win * win_stride + (long long)pos[i].ri * ld + c0 + c, 16);
+      else
+        *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  } else {
+    for (int i = threadIdx.x; i < WG_RS * WIDTH; i += WG_NT) {
+      const int rr = i / WIDTH, cc = i - rr * WIDTH;
+      float v = 0.f;
+      if (r + rr < r_hi && c0 + cc < cols) {
+        RowPos q;
+        q.at(r + rr, per_win);
+        v = base[q.win * win_stride + (long long)q.ri * ld + c0 + cc];
+      }
+      s[rr * LD + cc] = v;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < NPOS; ++i) pos[i].advance(WG_RS, per_win);
+}
+
+// A bias gradient's chunk: the column sums of D over rows [r_lo, r_hi),
+// 4 row groups of 64 columns, each summed in row order, then the groups in
+// order.
+__device__ void wg_bias(const WGDesc& g, int f0, int r_lo, int r_hi,
+                        float* __restrict__ out, float* red) {
+  const int c = threadIdx.x & 63, grp = threadIdx.x >> 6, f = f0 + c;
+  float s = 0.f;
+  if (f < g.F && r_lo + grp < r_hi) {
+    RowPos pos;
+    pos.at(r_lo + grp, g.per_win);
+    for (int r = r_lo + grp; r < r_hi; r += 4) {
+      s += g.D[pos.win * g.d_win + (long long)pos.ri * g.ldd + f];
+      pos.advance(4, g.per_win);
+    }
+  }
+  red[grp * 64 + c] = s;
+  __syncthreads();
+  if (grp == 0 && f < g.F) out[f] = ((red[c] + red[64 + c]) + red[128 + c]) + red[192 + c];
+}
+
+// One (product, 128 x 64 tile, row chunk) per block: the tile of A^T D over
+// the chunk's rows at float32 accuracy on the tensor cores (3xTF32), or a
+// bias gradient's column sums; written to the chunk's partial.
+__global__ void __launch_bounds__(WG_NT, 3)
 wgrad_kernel(const __grid_constant__ WGBatch bt, float* __restrict__ partial) {
-  __shared__ __align__(16) float sA[WG_ROWS][WG_TILE];
-  __shared__ __align__(16) float sD[WG_ROWS][WG_TILE];
+  extern __shared__ __align__(16) float wsm[];
   const int bid = blockIdx.x;
   int i = 0;
   while (i + 1 < bt.n && bt.d[i + 1].block0 <= bid) ++i;
   const WGDesc& g = bt.d[i];
   const int local = bid - g.block0;
   const int chunk = local % g.chunks, tile = local / g.chunks;
-  const int k0 = (tile / g.tiles_f) * WG_TILE, f0 = (tile % g.tiles_f) * WG_TILE;
+  const int k0 = (tile / g.tiles_f) * WG_TK, f0 = (tile % g.tiles_f) * WG_TF;
   const int crow = (g.R + g.chunks - 1) / g.chunks;
   const int r_lo = chunk * crow, r_hi = min(g.R, r_lo + crow);
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  float acc[4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[a][c] = 0.f;
-
-  for (int r0 = r_lo; r0 < r_hi; r0 += WG_ROWS) {
-    for (int t = threadIdx.x; t < WG_ROWS * WG_TILE; t += WG_NT) {
-      const int rr = t / WG_TILE, cc = t - rr * WG_TILE, r = r0 + rr;
-      float a = 0.f, d = 0.f;
-      if (r < r_hi) {
-        const int win = r / g.per_win, ri = r - win * g.per_win;
-        const int k = k0 + cc, f = f0 + cc;
-        if (k < g.K)
-          a = g.A ? g.A[win * g.a_win + (long long)ri * g.lda + k] : 1.f;
-        if (f < g.F) d = g.D[win * g.d_win + (long long)ri * g.ldd + f];
-      }
-      sA[rr][cc] = a;
-      sD[rr][cc] = d;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int rr = 0; rr < WG_ROWS; ++rr) {
-      const float4 a = *reinterpret_cast<const float4*>(&sA[rr][ty * 4]);
-      const float4 d = *reinterpret_cast<const float4*>(&sD[rr][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w}, dv[4] = {d.x, d.y, d.z, d.w};
-#pragma unroll
-      for (int x = 0; x < 4; ++x)
-#pragma unroll
-        for (int y = 0; y < 4; ++y) acc[x][y] = fmaf(av[x], dv[y], acc[x][y]);
-    }
-    __syncthreads();
-  }
   float* out = partial + g.poff + (long long)chunk * g.K * g.F;
-#pragma unroll
-  for (int x = 0; x < 4; ++x) {
-    const int k = k0 + ty * 4 + x;
-    if (k >= g.K) continue;
-#pragma unroll
-    for (int y = 0; y < 4; ++y) {
-      const int f = f0 + tx * 4 + y;
-      if (f < g.F) out[(long long)k * g.F + f] = acc[x][y];
-    }
+  if (!g.A) {
+    wg_bias(g, f0, r_lo, r_hi, out, wsm);
+    return;
   }
+  float* sA = wsm;                      // [2][WG_RS][WG_LA]
+  float* sD = wsm + 2 * WG_RS * WG_LA;  // [2][WG_RS][WG_LD]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, t = lane & 3;
+  const int wk = (warp & 3) * 32, wf = (warp >> 2) * 32;
+  constexpr int NPA = WG_RS * WG_TK / 4 / WG_NT, NPD = WG_RS * WG_TF / 4 / WG_NT;
+  RowPos pa[NPA], pd[NPD];
+#pragma unroll
+  for (int j = 0; j < NPA; ++j)
+    pa[j].at(r_lo + threadIdx.x / (WG_TK / 4) + j * (WG_NT / (WG_TK / 4)), g.per_win);
+#pragma unroll
+  for (int j = 0; j < NPD; ++j)
+    pd[j].at(r_lo + threadIdx.x / (WG_TF / 4) + j * (WG_NT / (WG_TF / 4)), g.per_win);
+  float acc[2][4][4];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int h = 0; h < 4; ++h) acc[m][n][h] = 0.f;
+
+  const int stages = (r_hi - r_lo + WG_RS - 1) / WG_RS;
+  auto load = [&](int st) {
+    const int buf = st & 1, r = r_lo + st * WG_RS;
+    wg_stage<WG_TK, WG_LA>(sA + buf * WG_RS * WG_LA, g.A, g.a_win, g.lda, g.K, k0,
+                           g.vec_a, r, r_hi, g.per_win, pa);
+    wg_stage<WG_TF, WG_LD>(sD + buf * WG_RS * WG_LD, g.D, g.d_win, g.ldd, g.F, f0,
+                           g.vec_d, r, r_hi, g.per_win, pd);
+    __pipeline_commit();
+  };
+  if (stages > 0) load(0);
+  for (int st = 0; st < stages; ++st) {
+    if (st + 1 < stages) {
+      load(st + 1);
+      __pipeline_wait_prior(1);
+    } else {
+      __pipeline_wait_prior(0);
+    }
+    __syncthreads();
+    const float* a = sA + (st & 1) * WG_RS * WG_LA;
+    const float* d = sD + (st & 1) * WG_RS * WG_LD;
+#pragma unroll
+    for (int kk = 0; kk < WG_RS; kk += 8) {
+      const float* a0 = a + (kk + t) * WG_LA + wk + gq;
+      const float* a1 = a0 + 4 * WG_LA;
+      FragA fa[2];
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+        fa[m].set(a0[16 * m], a0[16 * m + 8], a1[16 * m], a1[16 * m + 8]);
+      const float* d0 = d + (kk + t) * WG_LD + wf + gq;
+      FragB fb[4];
+#pragma unroll
+      for (int n = 0; n < 4; ++n) fb[n].set(d0[8 * n], d0[8 * n + 4 * WG_LD]);
+#pragma unroll
+      for (int term = 0; term < 3; ++term)
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int m = 0; m < 2; ++m) mma_term(acc[m][n], fa[m], fb[n], term);
+    }
+    __syncthreads();  // the buffer is read before the next stage refills it
+  }
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const int k = k0 + wk + 16 * m + gq + (h >= 2 ? 8 : 0);
+        const int f = f0 + wf + 8 * n + 2 * t + (h & 1);
+        if (k < g.K && f < g.F) out[(long long)k * g.F + f] = acc[m][n][h];
+      }
 }
 
 // Sums each output's chunks in chunk order and adds the sum to the
@@ -591,8 +824,13 @@ struct WGPlan {
     g.R = per_win * windows;
     int chunks = (g.R + 255) / 256;
     g.chunks = chunks < 1 ? 1 : chunks > WG_MAX_CHUNKS ? WG_MAX_CHUNKS : chunks;
-    g.tiles_f = (F + WG_TILE - 1) / WG_TILE;
-    const int tiles_k = (K + WG_TILE - 1) / WG_TILE;
+    g.tiles_f = (F + WG_TF - 1) / WG_TF;
+    const int tiles_k = A ? (K + WG_TK - 1) / WG_TK : 1;
+    auto aligned = [](const float* ptr) {
+      return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0;
+    };
+    g.vec_a = A && lda % 4 == 0 && a_win % 4 == 0 && K % 4 == 0 && aligned(A);
+    g.vec_d = ldd % 4 == 0 && d_win % 4 == 0 && F % 4 == 0 && aligned(D);
     g.block0 = bt.blocks;
     bt.blocks += tiles_k * g.tiles_f * g.chunks;
     g.elem0 = bt.elems;
@@ -608,7 +846,7 @@ struct WGPlan {
   cudaError_t launch(const Work& w, cudaStream_t stream) {
     if (overflow || pfloats > w.partial_cap) return cudaErrorInvalidValue;
     if (bt.n == 0) return cudaSuccess;
-    wgrad_kernel<<<bt.blocks, WG_NT, 0, stream>>>(bt, w.partial);
+    wgrad_kernel<<<bt.blocks, WG_NT, WG_SMEM, stream>>>(bt, w.partial);
     cudaError_t err = cudaGetLastError();
     if (err) return err;
     wgrad_reduce_kernel<<<(bt.elems + WG_NT - 1) / WG_NT, WG_NT, 0, stream>>>(
@@ -669,11 +907,12 @@ extern "C" int fused_mp_backward(
   const int ea_w = ed * (p.with_att ? 2 : 1);
   const size_t proj_smem = (size_t)er * nd * f + sw;
   const size_t cls_smem = (size_t)er * (ed + 2 * (L1 + L2 + L3) + 1) * f + sw;
-  const size_t nbwd_smem = (size_t)nr * (2 * M + C1 + C2 + nd) * f + sw;
+  const size_t nw = (size_t)NB_SW * f, ew = (size_t)EB_SW * f, pad = TC_PAD;
+  const size_t nbwd_smem = (size_t)nr * (2 * M + C1 + C2 + nd + 4 * pad) * f + nw;
   const size_t ebwd_smem =
-      2 * nr * sizeof(int) +
-      (size_t)nr * (ea_w + H1 + H2 + ed + 2 * M1 + M) * f + sw;
-  const size_t scat_smem = (size_t)nr * QW * f + sw;
+      2 * EB_ROWS * sizeof(int) +
+      (size_t)EB_ROWS * (std::max(ea_w, M) + H1 + H2 + ed + 2 * M1 + 6 * pad) * f + ew;
+  const size_t scat_smem = (size_t)nr * (QW + pad) * f + nw;
   const size_t dx0_smem = (size_t)nr * 2 * M1 * f + sw;
   cudaError_t err;
   if ((err = allow_smem(proj_kernel, proj_smem))) return err;
@@ -682,11 +921,12 @@ extern "C" int fused_mp_backward(
   if ((err = allow_smem(edge_bwd_kernel, ebwd_smem))) return err;
   if ((err = allow_smem(node_scatter_kernel, scat_smem))) return err;
   if ((err = allow_smem(dx0_kernel, dx0_smem))) return err;
+  if ((err = allow_smem(wgrad_kernel, WG_SMEM))) return err;
 
   const dim3 proj_grid((N + er - 1) / er, B);
   const dim3 cls_grid((E + er - 1) / er, B);
   const dim3 node_grid((N + nr - 1) / nr, B);
-  const dim3 edge_grid((E + nr - 1) / nr, B);
+  const dim3 edge_grid((E + EB_ROWS - 1) / EB_ROWS, B);
   const long long nrows = (long long)B * N;
   if ((err = cudaMemsetAsync(w.T, 0, nrows * 2 * M1 * f, stream))) return err;
   if ((err = cudaMemsetAsync(w.dxa, 0, nrows * nd * f, stream))) return err;
@@ -725,13 +965,13 @@ extern "C" int fused_mp_backward(
     const float* agg_t = agg + t * a_slot;
     proj_kernel<<<proj_grid, NT, proj_smem, stream>>>(p, x_t, x_win, w.npb, QW);
     if ((err = cudaGetLastError())) return err;
-    node_bwd_kernel<<<node_grid, NT, nbwd_smem, stream>>>(p, q, agg_t, a_win,
+    node_bwd_kernel<<<node_grid, NB_NT, nbwd_smem, stream>>>(p, q, agg_t, a_win,
                                                            dX_in, w);
     if ((err = cudaGetLastError())) return err;
-    edge_bwd_kernel<<<edge_grid, NT, ebwd_smem, stream>>>(
+    edge_bwd_kernel<<<edge_grid, EB_NT, ebwd_smem, stream>>>(
         p, q, w.npb, e_t, e_n, e_win, att, src, dst, de0, datt, w);
     if ((err = cudaGetLastError())) return err;
-    node_scatter_kernel<<<node_grid, NT, scat_smem, stream>>>(
+    node_scatter_kernel<<<node_grid, NB_NT, scat_smem, stream>>>(
         p, q, doff, dperm, soff, sperm, w, dX_out);
     if ((err = cudaGetLastError())) return err;
 

@@ -97,7 +97,7 @@ _ARGTYPES = {
         "fused_mp_backward": (22, ctypes.c_int),
     },
     "segment_sum": {
-        # segment_sum_forward(dims, data, off, perm, out, stream)
+        # segment_sum_forward(dims, data, ids, mask, out, stream)
         "segment_sum_forward": (6, ctypes.c_int),
     },
 }

@@ -6,8 +6,9 @@ carries and a hand-written backward kernel, both for Hopper, behind a
 The kernels replace the Pallas training pairs B4/B5 (``_train_fwd_kernel``,
 ``_train_bwd_kernel``) and B6/B7 (their edge-tiled variants): the
 forward is ``csrc/fused_mp.cu::fused_mp_forward_stash`` and the backward
-``csrc/fused_mp_train.cu::fused_mp_backward``; their source notes say what
-bounds them and how the design answers that. One pair covers every bucket
+``csrc/fused_mp_train.cu::fused_mp_backward``, whose products run on the
+tensor cores at float32 accuracy (3xTF32, ``csrc/tc_gemm.cuh``); their
+source notes say what bounds them and how the design answers that. One pair covers every bucket
 of ``graph.DEFAULT_BUCKETS``, so the JAX cover logic and its XLA-autodiff
 fallback have no counterpart here.
 

@@ -16,9 +16,10 @@ Phases, each fatal on failure:
      backward run twice must give bit-identical gradients;
   2c. the segment-sum kernel against its plain version at the shapes of the
      knn_conv_mode='active' path (message passing, GAT messages and softmax
-     denominators), the largest bucket, an all-padding window and empty
-     segments: forward, bit-identical across two runs, and its backward
-     against autograd of the plain version;
+     denominators), the largest bucket (D 128 and D 1), int64 ids (as the
+     kNN graph gives them), an all-padding window and empty segments:
+     forward, bit-identical across two runs, and its backward against
+     autograd of the plain version;
   3. inference path: the ``bench.py`` workload (4 synthetic scenes, 16
      frames, 40 tracks, trainval class mix, window 5, kNN 40) rebuilt from
      the port's modules and driven through ``SceneEncodedScorer.score_scenes``,
@@ -48,10 +49,11 @@ Phases, each fatal on failure:
      unchanged, 3 steps through the kernel and 3 through the plain version
      agree, 10 more lower the loss;
   4. timing: each kernel and its plain version with CUDA events on real
-     main-path batches (inference, and the training pair at (256, 4096) x8),
-     the train step, the paths' edges/s, and device-time profiles; the
-     segment-sum kernel beside its plain version and ``index_add_``, the
-     active paths' edges/s, profile and train step.
+     main-path batches (inference, and the training pair at (256, 4096) x8,
+     the backward's device time per call by sub-kernel), the train step,
+     the paths' edges/s, and device-time profiles; the segment-sum kernel
+     beside its plain version and ``index_add_`` with its device time per
+     call, the active paths' edges/s, profile and train step.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Exits non-zero, without the last
@@ -546,7 +548,6 @@ def main() -> int:
     from batch3dmot_tpu_torch.models import init_params_, make_model
     from batch3dmot_tpu_torch.ops import cuda_build, fused_mp, segment_kernel
     from batch3dmot_tpu_torch.ops.fused_mp import (
-        edge_csr,
         extract_mp_params,
         fused_mp_scores,
         fused_mp_scores_cuda,
@@ -691,18 +692,21 @@ def main() -> int:
     # message passing and GAT (D 64, 48), the largest bucket, and windows
     # with no valid edge next to real ones
     seg_cases = [
-        ((8,), 256, 4096, 128, False),
-        ((8,), 256, 5120, 96, False),
-        ((8,), 256, 5120, 1, False),
-        ((8,), 128, 1024, 64, False),
-        ((8,), 128, 1024, 48, False),
-        ((8,), 128, 2560, 48, False),
-        ((1,), 1024, 32768, 128, False),
-        ((2,), 64, 512, 128, True),
+        ((8,), 256, 4096, 128, False, False),
+        ((8,), 256, 5120, 96, False, True),
+        ((8,), 256, 5120, 1, False, True),
+        ((8,), 128, 1024, 64, False, False),
+        ((8,), 128, 1024, 48, False, False),
+        ((8,), 128, 2560, 48, False, True),
+        ((1,), 1024, 32768, 128, False, False),
+        ((1,), 1024, 32768, 1, False, False),
+        ((2,), 64, 512, 128, True, False),
     ]
     seg_err = 0.0
-    for lead, n, e, d, empty in seg_cases:
+    for lead, n, e, d, empty, ids64 in seg_cases:
         data, ids, mask = segment_inputs(rng, lead, n, e, d, empty)
+        if ids64:
+            ids = ids.long()
         got = segment_sum_cuda(data, ids, n, mask)
         again = segment_sum_cuda(data, ids, n, mask)
         ref = segment_sum_plain(data, ids, n, mask)
@@ -720,7 +724,8 @@ def main() -> int:
         (g_p,) = torch.autograd.grad(segment_sum_plain(x, ids, n, mask), x, ct)
         torch.cuda.synchronize()
         assert torch.equal(g_k, g_p), "segment-sum backward differs from autograd of the plain"
-        log(f"kernel segment_sum {lead} N={n} E={e} D={d} empty={empty}: max|kernel-plain| "
+        log(f"kernel segment_sum {lead} N={n} E={e} D={d} empty={empty} "
+            f"ids {'int64' if ids64 else 'int32'}: max|kernel-plain| "
             f"{err:.3e} over {int(mask.sum())} valid edges; bit-identical across two runs; "
             "backward equals autograd of the plain version")
         del data, ids, mask, got, again, ref, x, ct, g_k, g_p
@@ -1086,6 +1091,14 @@ def main() -> int:
             "plain " + "/".join(f"{t:.3f}" for t in turns) + f" ms), bound {b_ms:.3f} ms "
             f"({flops / 1e9:.2f} GFLOP, {nbytes / 2**20:.1f} MiB; {b_by}), "
             f"{flops / (k_ms * 1e-3) / 1e12:.2f} TFLOP/s")
+    out_k = fwd(fused_mp_train_scores)
+    reps = 5
+    _, bwd_dev, bwd_rows = profile_device(lambda: [bwd(out_k) for _ in range(reps)])
+    del out_k
+    log(f"  backward device time per call {bwd_dev / reps:.3f} ms, "
+        f"{b_flops / (bwd_dev / reps * 1e-3) / 1e12:.2f} TFLOP/s over the device time; by "
+        "sub-kernel: " + "; ".join(f"{us / 1e3 / reps:.3f} ms x{count // reps} {key[:40]}"
+                                  for us, key, count in bwd_rows[:8]))
     pair_k = timed_train["fwd"][0] + timed_train["bwd"][0]
     pair_p = timed_train["fwd"][1] + timed_train["bwd"][1]
     pair_b, pair_by = bound(f_flops + b_flops, f_bytes + b_bytes)
@@ -1147,26 +1160,29 @@ def main() -> int:
     kernel_seg = lambda: segment_sum_cuda(data, ids, n, mask)  # noqa: E731
     plain_seg = lambda: segment_sum_plain(data, ids, n, mask)  # noqa: E731
     torch.testing.assert_close(library(), kernel_seg(), rtol=RTOL, atol=ATOL)
-    idx = torch.where(mask, ids, -1)
     with torch.inference_mode():
         turns = [cuda_ms(plain_seg, 20), cuda_ms(kernel_seg, 50), cuda_ms(library, 50),
                  cuda_ms(library, 50), cuda_ms(kernel_seg, 50), cuda_ms(plain_seg, 20)]
-        csr_ms = cuda_ms(lambda: edge_csr(idx, n), 50)
     seg_ms, seg_plain_ms = (turns[1] + turns[4]) / 2, (turns[0] + turns[5]) / 2
     seg_lib_ms = (turns[2] + turns[3]) / 2
     flops, nbytes = segment_work(data, ids, mask, n)
     seg_bound_ms, seg_bound_by = bound(flops, nbytes)
     log(f"timing segment_sum at (256, 4096) x8, D=128 ({int(mask.sum())} valid edges, "
-        f"main-path batch): kernel {seg_ms:.4f} ms (of which the CSR build "
-        f"{csr_ms:.4f} ms), plain {seg_plain_ms:.4f} ms, index_add_ {seg_lib_ms:.4f} ms "
+        f"main-path batch, ids {ids.dtype}): kernel {seg_ms:.4f} ms (one launch, no CSR "
+        f"outside it), plain {seg_plain_ms:.4f} ms, index_add_ {seg_lib_ms:.4f} ms "
         "(turns plain/kernel/index_add_/index_add_/kernel/plain "
         + "/".join(f"{t:.4f}" for t in turns) + f" ms), bound {seg_bound_ms:.4f} ms "
         f"({nbytes / 2**20:.2f} MiB, {flops / 1e6:.2f} MFLOP; {seg_bound_by}), "
         f"{nbytes / (seg_ms * 1e-3) / 1e9:.1f} GB/s")
     _, dev_ms, seg_rows = profile_device(lambda: [kernel_seg() for _ in range(20)])
-    log(f"  device time per segment_sum call {dev_ms / 20:.4f} ms: " + "; ".join(
-        f"{us / 1e3 / 20:.4f} ms {key[:48]}" for us, key, _ in seg_rows[:6]))
-    del kept, data, ids, mask, idx
+    assert all("segment_sum" in key for _, key, _ in seg_rows), seg_rows
+    # one launch per call; the profiler may drop a launch, so divide by those it saw
+    seg_seen = sum(count for _, _, count in seg_rows)
+    _, lib_dev_ms, _ = profile_device(lambda: [library() for _ in range(20)])
+    log(f"  device time per call: segment_sum {dev_ms / seg_seen:.4f} ms ({seg_seen} of 20 "
+        f"launches traced, {dev_ms:.4f} ms), index_add_ with its staging "
+        f"{lib_dev_ms / 20:.4f} ms (over 20 calls)")
+    del kept, data, ids, mask
 
     wall_ms, device_ms, rows = profile_device(
         lambda: scorer_a.score_scenes(scenes, windows_list))
@@ -1176,7 +1192,8 @@ def main() -> int:
         log(f"  {us / 1e3:9.3f} ms  x{count:<4d} {key[:90]}")
     for us, key, count in rows:
         if "segment_sum" in key or "RadixSort" in key:
-            log(f"  segment sum and CSR sort: {us / 1e3:.3f} ms x{count} {key[:70]}")
+            log(f"  segment sum and sorts (the kNN graph's stable sort is one per conv): "
+                f"{us / 1e3:.3f} ms x{count} {key[:70]}")
 
     for name, (tk, batch) in active_train.items():
         def plain_step(tk=tk, batch=batch):

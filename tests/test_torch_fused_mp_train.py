@@ -236,7 +236,8 @@ def kernel_and_plain(model, arrays, depth, logits):
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "name, bucket, windows, empty",
-    [("mm", (64, 512), 2, 1), ("mm", (256, 4096), 2, 0), ("pose", (128, 1024), 3, 1)],
+    [("mm", (64, 512), 2, 1), ("mm", (256, 4096), 2, 0), ("mm", (512, 4096), 1, 0),
+     ("pose", (128, 1024), 3, 1)],
 )
 def test_cuda_training_kernels_match_plain(name, bucket, windows, empty):
     """The Hopper pair against autograd of the plain version on the card,

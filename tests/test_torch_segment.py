@@ -170,7 +170,8 @@ def test_segment_sum_refuses_other_devices():
 
 # the path's shapes: mm message passing (D 128), the GAT messages (D 96,
 # 48) and softmax denominators (D 1), pose message passing (D 64), the
-# largest bucket, and windows with no valid edge
+# largest bucket (several edge chunks per block), and windows with no
+# valid edge
 CUDA_CASES = [
     ((8,), 256, 4096, 128, False),
     ((8,), 256, 5120, 96, False),
@@ -178,16 +179,51 @@ CUDA_CASES = [
     ((8,), 128, 1024, 64, True),
     ((8,), 128, 2560, 48, False),
     ((1,), 1024, 32768, 128, False),
+    ((1,), 1024, 32768, 1, False),
     ((2, 3), 77, 300, 6, True),
 ]
+
+
+@pytest.mark.parametrize("lead, n, e, d, empty", CUDA_CASES + [
+    ((8,), 256, 4096, 4096, False),  # wide rows: the tile shrinks below 8
+    ((1,), 5, 0, 3, False),  # no edges at all
+])
+def test_segment_plan_fits_the_kernel(lead, n, e, d, empty):
+    """The kernel's launch plan: a node tile of 1-32 (one warp scans its
+    counts), at least 8 unless the accumulators need fewer, two blocks per
+    SM unless the tile is already 8, accumulators within their budget, an
+    edge chunk that is a multiple of the block and covers a window up to
+    MAX_CHUNK edges, and the shared memory the kernel carves."""
+    windows = int(np.prod(lead))
+    tile, chunk, smem = segment_kernel.segment_plan(windows, n, e, d)
+    assert 1 <= tile <= segment_kernel.MAX_TILE
+    assert tile * d * 4 <= segment_kernel.ACC_BYTES or tile == 1
+    if tile * 2 * d * 4 <= segment_kernel.ACC_BYTES and tile < segment_kernel.MAX_TILE:
+        assert tile == 8 or windows * -(-n // (2 * tile)) < 2 * segment_kernel.H100_SMS
+    if tile < 8:
+        assert tile * 2 * d * 4 > segment_kernel.ACC_BYTES
+    assert chunk % segment_kernel.THREADS == 0 and chunk <= segment_kernel.MAX_CHUNK
+    assert chunk >= min(e, segment_kernel.MAX_CHUNK)
+    warps = segment_kernel.THREADS // 32
+    need = 4 * tile * d + 4 * chunk + 4 * warps * tile + 4 * (tile + 1) + chunk
+    assert need <= smem < need + 16 and smem % 16 == 0
+    assert smem <= segment_kernel.SMEM_LIMIT
+
+
+def test_segment_plan_refuses_rows_too_wide_for_shared_memory():
+    """A row so wide that one node's accumulator and a chunk exceed a
+    block's shared memory is refused on the host, before any launch."""
+    with pytest.raises(ValueError, match="shared memory"):
+        segment_kernel.segment_plan(1, 4, 4096, 64 * 1024)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("lead, n, e, d, empty", CUDA_CASES)
 def test_cuda_kernel_matches_plain(lead, n, e, d, empty):
     """The Hopper kernel against its plain version on the card: forward at
-    the stated tolerance, bit-identical across two runs, one launch per
-    call, and the backward against autograd of the plain version."""
+    the stated tolerance, bit-identical across two runs and with int64 ids
+    (as the kNN graph gives them), one launch per call, and the backward
+    against autograd of the plain version."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
     arrays = _inputs(np.random.default_rng(e + d), lead, e, n, d, empty=empty)
@@ -196,8 +232,10 @@ def test_cuda_kernel_matches_plain(lead, n, e, d, empty):
     got = segment_sum(data, ids, n, mask)
     again = segment_sum(data, ids, n, mask)
     torch.cuda.synchronize()
-    assert segment_sum.launches == before + 2
-    assert torch.equal(got, again)
+    wide = segment_sum(data, ids.long(), n, mask)
+    torch.cuda.synchronize()
+    assert segment_sum.launches == before + 3
+    assert torch.equal(got, again) and torch.equal(got, wide)
     ref = segment_sum_plain(data, ids, n, mask)
     torch.testing.assert_close(got, ref, rtol=2e-4, atol=2e-5)
 
