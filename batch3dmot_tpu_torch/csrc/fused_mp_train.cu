@@ -72,7 +72,7 @@
 //     blocks per SM; it stages 32 rows of both operands per step in two
 //     cp.async buffers and maps rows to windows once per stage.
 // The classifier and the initial-x product (cls_bwd_kernel, dx0_kernel,
-// small and once per call) stay on the forward's fp32 block_gemm. The
+// small and once per call) stay on mp_common.cuh's fp32 block_gemm. The
 // per-node sums (node_scatter_kernel) take a warp per (node, part) with
 // float4 loads, in edge order.
 //
@@ -113,20 +113,6 @@ __device__ __forceinline__ void node_gemm(const float* sA, int lda, int K,
                                           float* sW, Epi epi) {
   tc_gemm<1, NB_WARPS, NB_KC, NB_STAGES>(
       sA, lda, K, W, N, N, sW, sW + tc_stage_floats<NB_KC, NB_STAGES>(), epi);
-}
-
-// Rows [0, n) of the shared array s (row stride ls) to g (row stride W,
-// a multiple of 4) in coalesced 16-byte pieces: the layer kernels write
-// their workspace rows this way, not element by element from the product
-// epilogues (whose fragment layout scatters the stores).
-__device__ __forceinline__ void store_rows(const float* s, int ls, float* g,
-                                           int W, int n) {
-  const int q = W >> 2;
-  for (int i = threadIdx.x; i < n * q; i += blockDim.x) {
-    const int r = i / q, c = 4 * (i - r * q);
-    *reinterpret_cast<float4*>(g + (size_t)r * W + c) =
-        *reinterpret_cast<const float4*>(s + r * ls + c);
-  }
 }
 
 // Transposed weights ([out, in]) the backward multiplies by, packed by the

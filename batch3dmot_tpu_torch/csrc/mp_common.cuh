@@ -1,8 +1,10 @@
 // Building blocks shared by the fused message-passing kernels
 // (fused_mp.cu: inference and the training forward; fused_mp_train.cu: the
-// training backward): the weight-blob layout, the block-wide fp32 product,
-// the node projection and the per-node CSR sum. The design notes are in
-// the two sources.
+// training backward): the weight-blob layout, the block-wide fp32 product
+// (the classifiers and the backward's once-per-call products), the
+// backward's node projection and the coalesced row store. The tensor-core
+// products are in tc_gemm.cuh (the backward's) and tc_stream.cuh (the
+// forward's); the design notes are in the two sources.
 
 #pragma once
 
@@ -210,10 +212,10 @@ __device__ void block_gemm(const float* sA, int lda, int K,
 constexpr int EDGE_TM = 8, NODE_TM = 4;
 constexpr int EDGE_ROWS = EDGE_TM * NT / 32, NODE_ROWS = NODE_TM * NT / 32;
 
-// Node projections: the first `ncols` columns of x @ Wp for every node
-// (all PW columns: the x part of the first layers and the loop-invariant
-// x0 part; QW columns: the x part only). Window b's rows start at
-// x + b * x_win.
+// Node projections (the training backward's): the first `ncols` columns of
+// x @ Wp for every node (all PW columns: the x part of the first layers and
+// the loop-invariant x0 part; QW columns: the x part only). Window b's rows
+// start at x + b * x_win.
 __global__ void __launch_bounds__(NT, 2)
 proj_kernel(Params p, const float* __restrict__ x, long long x_win,
             float* __restrict__ npb, int ncols) {
@@ -235,14 +237,18 @@ proj_kernel(Params p, const float* __restrict__ x, long long x_win,
              });
 }
 
-// Per-node sums over a CSR of global edge ids: node n of window b owns
-// perm[off[k]:off[k+1]], k = b * (N + 1) + n, in edge order.
-__device__ __forceinline__ float csr_sum(const float* __restrict__ v, int ld,
-                                         int c, const int* __restrict__ off,
-                                         const int* __restrict__ perm, int k) {
-  float s = 0.f;
-  for (int q = off[k]; q < off[k + 1]; ++q) s += v[(size_t)perm[q] * ld + c];
-  return s;
+// Rows [0, n) of the shared array s (row stride ls) to g (row stride W,
+// a multiple of 4) in coalesced 16-byte pieces: the layer kernels write
+// their rows this way, not element by element from the product epilogues
+// (whose fragment layout scatters the stores).
+__device__ __forceinline__ void store_rows(const float* s, int ls, float* g,
+                                           int W, int n) {
+  const int q = W >> 2;
+  for (int i = threadIdx.x; i < n * q; i += blockDim.x) {
+    const int r = i / q, c = 4 * (i - r * q);
+    *reinterpret_cast<float4*>(g + (size_t)r * W + c) =
+        *reinterpret_cast<const float4*>(s + r * ls + c);
+  }
 }
 
 // Dynamic shared memory above 48 KB has to be allowed per kernel.

@@ -1,6 +1,10 @@
-// Tensor-core products at float32 accuracy (3xTF32) for the training
-// backward (fused_mp_train.cu). The forward kernels keep mp_common.cuh's
-// block_gemm, an fp32 FMA chain.
+// Tensor-core products at float32 accuracy (3xTF32) with mma.sync for the
+// training backward (fused_mp_train.cu), which splits its operands itself.
+// The forward's products (fused_mp.cu) run on the tensor cores too, from
+// weights split once per call: tc_stream.cuh (wgmma for the edge kernel,
+// mma.sync for the node kernels), built on split_tf32 and the fragment
+// helpers here. Only the classifiers and the backward's once-per-call
+// products stay on mp_common.cuh's fp32 block_gemm.
 //
 // 3xTF32: each operand x is split into big = tf32(x) (round to nearest,
 // ties away, as cvt.rna) and small = tf32(x - big); x = big + small to

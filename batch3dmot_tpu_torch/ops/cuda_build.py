@@ -79,14 +79,14 @@ def build(names: Sequence[str]) -> Dict[str, dict]:
 # C entries per library: name -> (number of c_void_p arguments, return type)
 _ARGTYPES = {
     "fused_mp": {
-        # fused_mp_forward(dims, woff, wblob, x0, e_state, att, src, dst,
-        #                  doff, dperm, soff, sperm, npb, pbuf, fbuf, out,
-        #                  stream)
-        "fused_mp_forward": (17, ctypes.c_int),
-        # fused_mp_forward_stash(dims, woff, wblob, att, src, dst, doff,
-        #                        dperm, soff, sperm, npb, pbuf, fbuf, xs, es,
-        #                        agg, out, stream)
-        "fused_mp_forward_stash": (18, ctypes.c_int),
+        # fused_mp_forward(dims, woff, wblob, tblob, x0, e_state, att, src,
+        #                  dst, doff, dperm, soff, sperm, npb, pbuf, fbuf,
+        #                  out, stream)
+        "fused_mp_forward": (18, ctypes.c_int),
+        # fused_mp_forward_stash(dims, woff, wblob, tblob, att, src, dst,
+        #                        doff, dperm, soff, sperm, npb, pbuf, fbuf, xs,
+        #                        es, agg, out, stream)
+        "fused_mp_forward_stash": (19, ctypes.c_int),
     },
     "fused_mp_train": {
         # fused_mp_train_workspace(dims) -> floats

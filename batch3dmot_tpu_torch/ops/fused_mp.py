@@ -4,9 +4,14 @@ plain PyTorch version (counterpart of ``batch3dmot_tpu/ops/pallas_mp.py``).
 The CUDA kernel (``csrc/fused_mp.cu``) replaces the Pallas TPU kernels
 ``_mp_kernel``, ``_mp_kernel_tiled`` and ``_mp_kernel_tiled_hbm`` and covers
 every bucket of ``graph.DEFAULT_BUCKETS``; its source note says what bounds
-it and how the design answers that. :func:`fused_mp_scores` launches it for
-CUDA tensors (or raises) and runs :func:`fused_mp_scores_plain`, the layer
-loop with ``index_add_``, for CPU tensors.
+it and how the design answers that (3xTF32 products on the tensor cores).
+:func:`fused_mp_plan` picks its tiles and shared memory; :func:`tc_weights`
+splits its weights into TF32 parts (:func:`split_tf32`) once per call and
+lays them out as the streams its tensor-core products read.
+:func:`fused_mp_scores`
+launches it for CUDA tensors (or raises) and runs
+:func:`fused_mp_scores_plain`, the layer loop with ``index_add_``, for CPU
+tensors.
 
 Weight contract (``extract_mp_params``), the same as the JAX package's:
 every first layer is split by rows along its concatenated input,
@@ -20,6 +25,7 @@ with weights [in, out] and biases [1, out].
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -27,6 +33,24 @@ import torch
 from torch import nn
 
 from batch3dmot_tpu_torch.ops import cuda_build
+
+SMEM_LIMIT = 232_448  # shared memory a block can use on Hopper
+H100_SMS = 132
+# csrc/fused_mp.cu: the largest shape the kernel family covers (the largest
+# bucket); the edge kernel's rows, weight slice depth (K), ring slots and
+# most slices per layer; the node kernels' rows, slice depth, ring slots
+# and most slices per block; the room for a ring's mbarriers; the
+# activations' row padding; the classifier's rows and fp32 weight stages
+COVER = (1024, 32768)
+_EDGE_R, _EDGE_KC, _EDGE_STAGES, _MAX_SLICES = 64, 16, 3, 128
+_NODE_T, _NODE_KC, _NODE_STAGES, _MAX_NODE_SLICES = 16, 16, 3, 128
+_BAR, _PAD, _CLS_ROWS, _CLS_SW = 16, 4, 32, 2 * 16 * 256
+
+
+@functools.cache
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 # ---------------------------------------------------------------------------
 # Weights
@@ -232,17 +256,170 @@ def pack_mp_weights(flat_weights, meta, node_dim: int, edge_dim: int,
                     with_attention: bool):
     """The kernel's weight blob (a detached copy): one contiguous f32
     tensor of :func:`mp_arrays`, the float offset (a multiple of 4) of each
-    of its 29 arrays and the widths."""
+    of its 29 arrays and the widths (``nd``, ``ed`` and the hidden widths)."""
     arrays = mp_arrays(flat_weights, meta)
     blob, woff = pack_arrays(arrays)
     w_ea, w1, w2, fue, f1, c1w, c2w, l1w, l2w, l3w = (
         arrays[i] for i in (0, 2, 4, 6, 8, 16, 18, 23, 25, 27))
     widths = dict(
+        nd=node_dim, ed=edge_dim,
         H1=w1.shape[0], H2=w2.shape[0], M1=f1.shape[0], M=f1.shape[1],
         C1=c1w.shape[0], C2=c2w.shape[0],
         L1=l1w.shape[0], L2=l2w.shape[0], L3=l3w.shape[0],
     )
     return blob, woff, widths
+
+
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """Finite f32 x rounded to TF32 (10 mantissa bits, half away from zero)
+    in integer arithmetic: (bits + 0x1000) & 0xffffe000 on the bit pattern
+    (no finite value's int32 pattern overflows the addition)."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32(w: torch.Tensor) -> torch.Tensor:
+    """The TF32 big and small parts of the finite f32 tensor ``w``,
+    flattened and concatenated (big first): big = tf32(w), small =
+    tf32(w - big), bit for bit what ``csrc/tc_gemm.cuh::split_tf32``
+    computes on the card."""
+    big = _tf32_rna(w.reshape(-1))
+    return torch.cat([big, _tf32_rna(w.reshape(-1) - big)])
+
+
+def _streams(w: dict, with_att: bool):
+    """The products of the kernels' weight streams, in stream order: (mp_arrays
+    index, K, N, the array's row length, its first column). The edge
+    kernel's (Wea, W1, W2, Fue, F1, Pue, P1); the node kernels' (C0, C1w,
+    C2w, the node projection's x columns Wp[:, :QW], its x0 columns)."""
+    ea = w["ed"] * (2 if with_att else 1)
+    pw, qw = 2 * w["H1"] + 4 * w["M1"], 2 * w["H1"] + 2 * w["M1"]
+    edge = ((0, ea, w["H1"]), (2, w["H1"], w["H2"]), (4, w["H2"], w["ed"]),
+            (6, w["ed"], w["M1"]), (8, w["M1"], w["M"]), (10, w["ed"], w["M1"]),
+            (12, w["M1"], w["M"]))
+    node = ((14, 2 * w["M"], w["C1"], w["C1"], 0), (16, w["C1"], w["C2"], w["C2"], 0),
+            (18, w["C2"], w["nd"], w["nd"], 0), (20, w["nd"], qw, pw, 0),
+            (20, w["nd"], pw - qw, pw, qw))
+    return tuple((i, k, n, n, 0) for i, k, n in edge), node
+
+
+def stream_slices(k: int, n: int, kc: int):
+    """The slices of one product's weights W [k, n] in a weight stream
+    (``csrc/tc_stream.cuh``): per pass of up to 256 output columns, per
+    slice of kc inputs, the (W row, W column) of every element of the
+    slice's [rows / 8][kc / 4][8][4] core-matrix layout of W^T (rows: the
+    pass's columns rounded up to a multiple of 32), -1 past W. A slice holds
+    these as big parts, then as small parts."""
+    out = []
+    for c0 in range(0, n, 256):
+        rows = -(-min(256, n - c0) // 32) * 32
+        ng, kg, r, c = np.meshgrid(np.arange(rows // 8), np.arange(kc // 4),
+                                   np.arange(8), np.arange(4), indexing="ij")
+        col = (c0 + ng * 8 + r).reshape(-1)
+        for k0 in range(0, k, kc):
+            row = (k0 + kg * 4 + c).reshape(-1)
+            bad = (row >= k) | (col >= n)
+            out.append((np.where(bad, -1, row), np.where(bad, -1, col)))
+    return out
+
+
+@functools.cache
+def _tc_layout(woff: tuple, widths: tuple, with_att: bool, device: torch.device):
+    """Blob positions (``len(blob)`` for a zero) and small-part flags of
+    every element of :func:`tc_weights`' tensor, and the node stream's
+    offset."""
+    zero = woff[-1]
+    src, small = [], []
+    edge, node = _streams(dict(widths), with_att)
+    for products, kc in ((edge, _EDGE_KC), (node, _NODE_KC)):
+        if products is node:
+            node_at = sum(a.size for a in src)
+        for i, k, n, ld, col0 in products:
+            for row, col in stream_slices(k, n, kc):
+                pos = np.where(row >= 0, woff[i] + row * ld + col0 + col, zero)
+                src += [pos, pos]
+                small += [np.zeros(pos.size, bool), np.ones(pos.size, bool)]
+    return (torch.from_numpy(np.concatenate(src)).to(device),
+            torch.from_numpy(np.concatenate(small)).to(device), node_at)
+
+
+def tc_weights(blob: torch.Tensor, woff, widths: dict, with_att: bool):
+    """The tensor-core products' weights as ``csrc/fused_mp.cu`` reads them:
+    two weight streams (:func:`stream_slices`; the edge kernel's, then the
+    node kernels'), each weight split into its TF32 big and small parts once
+    per call with :func:`split_tf32`'s rounding. Returns the tensor and the
+    float offset of the node stream in it."""
+    index, small, node_at = _tc_layout(
+        (*(int(o) for o in woff), blob.numel()), tuple(widths.items()), with_att, blob.device)
+    x = torch.cat([blob, blob.new_zeros(1)])[index]
+    big = _tf32_rna(x)
+    return torch.where(small, _tf32_rna(x - big), big), node_at
+
+
+def _ring_buf(kc, stages, split_rows=0):
+    """Floats of a kernel's mbarriers, ring slots (a slice of up to 256
+    columns, big and small parts) and two split activation slices of
+    split_rows rows (the node kernels'; the edge kernel splits into
+    registers)."""
+    return _BAR + stages * 2 * 256 * kc + 2 * 2 * split_rows * kc
+
+
+def fused_mp_plan(b: int, n: int, e: int, widths: dict, with_att: bool,
+                  sm_count: int = H100_SMS) -> dict:
+    """Launch plan of the forward kernel family for b windows of (n, e) at
+    ``widths`` (``pack_mp_weights``' dict): the edge kernel's row tile (64
+    rows, wgmma's M), the column shares of the node projections (whole
+    256-column passes: enough (node tile, window, share) blocks to fill the
+    ``sm_count`` SMs, at most one share per pass), and the shared-memory
+    bytes of each kernel, as ``csrc/fused_mp.cu`` lays them out (it refuses
+    a plan that differs from its own arithmetic). Raises for a shape outside
+    the cover: beyond ``COVER``, a width that is not a multiple of 4, a
+    message width the per-node sums cannot lay over a warp's lanes, more
+    weight slices than a block's slice table holds, or a kernel over the
+    shared memory of a block."""
+    w = widths
+    if not (b >= 1 and 1 <= n <= COVER[0] and 1 <= e <= COVER[1]):
+        raise ValueError(f"fused MP kernel: {b} windows of ({n}, {e}) lie outside "
+                         f"its cover (up to {COVER})")
+    if any(v % 4 for v in w.values()):
+        raise ValueError(f"fused MP kernel: widths must be multiples of 4, got {w}")
+    m4 = w["M"] // 4
+    lanes = min(32, m4)
+    if 32 % lanes or m4 % lanes:
+        raise ValueError(f"fused MP kernel: message width {w['M']} does not tile a warp")
+    edge, node = _streams(w, with_att)
+    slices = sum(-(-n_out // 256) * -(-k // _EDGE_KC) for _, k, n_out, _, _ in edge)
+    if slices > _MAX_SLICES:
+        raise ValueError(f"fused MP kernel: {slices} weight slices per layer, over {_MAX_SLICES}")
+    # column shares: whole 256-column passes of the node projection's x part
+    # (node kernel) and of both its parts (x0 projection), as many as fill
+    # the SMs with (node tile, window, share) blocks; share 0 has the most
+    tiles = b * -(-n // _NODE_T)
+    px, p0 = -(-node[3][2] // 256), -(-node[4][2] // 256)
+    node_split = min(px, max(1, sm_count // tiles))
+    proj_split = min(px + p0, max(1, sm_count // tiles))
+    chain = sum(-(-n_out // 256) * -(-k // _NODE_KC) for _, k, n_out, _, _ in node[:3])
+    per_pass = -(-w["nd"] // _NODE_KC)
+    most = max(chain + per_pass * -(-px // node_split), per_pass * -(-(px + p0) // proj_split))
+    if most > _MAX_NODE_SLICES:
+        raise ValueError(f"fused MP kernel: {most} weight slices per node block, "
+                         f"over {_MAX_NODE_SLICES}")
+    ea = w["ed"] * (2 if with_att else 1)
+    l_a = max(ea, w["H2"], w["M"]) + _PAD
+    l_h = max(w["H1"], w["M1"]) + _PAD
+    node_buf = _ring_buf(_NODE_KC, _NODE_STAGES, _NODE_T) + 2 * _MAX_NODE_SLICES
+    smem = dict(
+        edge=4 * (_ring_buf(_EDGE_KC, _EDGE_STAGES) + 2 * _MAX_SLICES
+                  + _EDGE_R * (l_a + l_h + w["ed"] + _PAD + 2)
+                  + w["H1"] + w["H2"] + w["ed"] + 2 * (w["M1"] + w["M"])),
+        node=4 * (node_buf + _NODE_T * (max(2 * w["M"], w["C2"]) + max(w["C1"], w["nd"])
+                                        + 2 * _PAD)),
+        proj=4 * (node_buf + _NODE_T * (w["nd"] + _PAD)),
+        cls=4 * (2 * _CLS_ROWS * max(w["ed"], w["L1"], w["L2"], w["L3"]) + _CLS_SW),
+    )
+    over = {k: v for k, v in smem.items() if v > SMEM_LIMIT}
+    if over:
+        raise ValueError(f"fused MP kernel: shared memory over {SMEM_LIMIT} bytes: {over}")
+    return dict(edge_rows=_EDGE_R, node_split=node_split, proj_split=proj_split, smem=smem)
 
 
 def edge_csr(idx: torch.Tensor, num_nodes: int):
@@ -278,8 +455,10 @@ def _check(name, t, dtype, shape):
 def kernel_inputs(x0, e0, att, src, dst, edge_mask, flat_weights, meta,
                   depth, logits):
     """Check the inputs and stage what every launch of the kernel family
-    reads: the weight blob and its offsets, the widths, ``dims`` (the C
-    entries' int32 header), the masked indices (-1 for a masked edge) and
+    reads: the weight blob and its offsets, the tensor-core weights' streams
+    (:func:`tc_weights`), the widths, ``dims`` (the C entries' int32
+    header: the shapes and widths, then the :func:`fused_mp_plan` and the
+    node stream's offset), the masked indices (-1 for a masked edge) and
     the destination and source CSRs."""
     b, n, nd = x0.shape
     e, ed = e0.shape[1], e0.shape[2]
@@ -294,6 +473,8 @@ def kernel_inputs(x0, e0, att, src, dst, edge_mask, flat_weights, meta,
 
     blob, woff, w = pack_mp_weights(flat_weights, meta, nd, ed, with_att)
     blob = blob.to(x0.device)
+    plan = fused_mp_plan(b, n, e, w, with_att, sm_count(x0.device.index or 0))
+    tc, node_at = tc_weights(blob, woff, w, with_att)
     neg = torch.full_like(src, -1, dtype=torch.int32)
     src_m = torch.where(edge_mask, src.to(torch.int32), neg).contiguous()
     dst_m = torch.where(edge_mask, dst.to(torch.int32), neg).contiguous()
@@ -302,11 +483,13 @@ def kernel_inputs(x0, e0, att, src, dst, edge_mask, flat_weights, meta,
     dims = np.array(
         [b, n, e, nd, ed, int(with_att), depth, int(logits),
          w["H1"], w["H2"], w["M1"], w["M"], w["C1"], w["C2"],
-         w["L1"], w["L2"], w["L3"]],
+         w["L1"], w["L2"], w["L3"], plan["edge_rows"], plan["node_split"],
+         plan["proj_split"], *(plan["smem"][k] for k in ("edge", "node", "proj", "cls")),
+         node_at],
         np.int32,
     )
-    return dict(blob=blob, woff=woff, widths=w, dims=dims, src=src_m,
-                dst=dst_m, doff=doff, dperm=dperm, soff=soff, sperm=sperm)
+    return dict(blob=blob, woff=woff, tc=tc, widths=w, dims=dims,
+                src=src_m, dst=dst_m, doff=doff, dperm=dperm, soff=soff, sperm=sperm)
 
 
 def host_ptr(a: np.ndarray) -> ctypes.c_void_p:
@@ -331,8 +514,8 @@ def fused_mp_scores_cuda(x0, e0, att, src, dst, edge_mask, flat_weights, meta,
     lib = cuda_build.load("fused_mp")
     err = lib.fused_mp_forward(
         host_ptr(k["dims"]), host_ptr(k["woff"]),
-        ptr(k["blob"]), ptr(x0), ptr(e_state), ptr(att), ptr(k["src"]),
-        ptr(k["dst"]), ptr(k["doff"]), ptr(k["dperm"]), ptr(k["soff"]),
+        ptr(k["blob"]), ptr(k["tc"]), ptr(x0), ptr(e_state), ptr(att),
+        ptr(k["src"]), ptr(k["dst"]), ptr(k["doff"]), ptr(k["dperm"]), ptr(k["soff"]),
         ptr(k["sperm"]), ptr(npb), ptr(pbuf), ptr(fbuf), ptr(out),
         ctypes.c_void_p(stream),
     )

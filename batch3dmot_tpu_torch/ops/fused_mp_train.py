@@ -79,7 +79,7 @@ def train_forward_cuda(x0, e0, att, src, dst, edge_mask, flat, meta, depth,
     fbuf = torch.empty_like(pbuf)
     out = torch.empty(b, e, **f32)
     err = cuda_build.load("fused_mp").fused_mp_forward_stash(
-        host_ptr(k["dims"]), host_ptr(k["woff"]), ptr(k["blob"]), ptr(att),
+        host_ptr(k["dims"]), host_ptr(k["woff"]), ptr(k["blob"]), ptr(k["tc"]), ptr(att),
         ptr(k["src"]), ptr(k["dst"]), ptr(k["doff"]), ptr(k["dperm"]),
         ptr(k["soff"]), ptr(k["sperm"]), ptr(npb), ptr(pbuf), ptr(fbuf),
         ptr(xs), ptr(es), ptr(agg), ptr(out), _stream(x0),

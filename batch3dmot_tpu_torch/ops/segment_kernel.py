@@ -18,7 +18,6 @@ kernel in the JAX package).
 from __future__ import annotations
 
 import ctypes
-import functools
 import math
 from typing import Optional
 
@@ -26,14 +25,12 @@ import numpy as np
 import torch
 
 from batch3dmot_tpu_torch.ops import cuda_build
-from batch3dmot_tpu_torch.ops.fused_mp import host_ptr, ptr
+from batch3dmot_tpu_torch.ops.fused_mp import H100_SMS, SMEM_LIMIT, host_ptr, ptr, sm_count
 
 # csrc/segment_sum.cu: threads per block, the largest node tile (one warp
 # scans a tile's counts) and the largest edge chunk a block lists at once
 THREADS, MAX_TILE, MAX_CHUNK = 256, 32, 8192
 ACC_BYTES = 64 * 1024  # accumulator budget of a block's shared memory
-SMEM_LIMIT = 232_448  # shared memory a block can use on Hopper
-H100_SMS = 132
 
 
 def segment_sum_plain(
@@ -80,11 +77,6 @@ def segment_plan(windows: int, num_segments: int, edges: int, d: int,
     return tile, chunk, smem
 
 
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def segment_sum_cuda(
     data: torch.Tensor,
     ids: torch.Tensor,
@@ -116,7 +108,7 @@ def segment_sum_cuda(
     if mask is not None:
         mask = mask.contiguous()
     vec4 = d % 4 == 0 and data.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
-    tile, chunk, smem = segment_plan(nb, num_segments, e, d, _sm_count(data.device.index or 0))
+    tile, chunk, smem = segment_plan(nb, num_segments, e, d, sm_count(data.device.index or 0))
     dims = np.array([nb, num_segments, e, d, int(vec4), tile, chunk, smem,
                      int(ids.dtype == torch.int64)], np.int32)
     stream = torch.cuda.current_stream(data.device).cuda_stream

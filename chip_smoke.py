@@ -9,7 +9,7 @@ Phases, each fatal on failure:
   2. kernels: the inference kernel against its plain PyTorch version on the
      card, on inputs made from a numpy seed, at the shapes the main path
      gives it and beyond (up to the largest bucket), compared on valid
-     edges; then the training pair (the stashing forward and the
+     edges, and bit-identical across two runs; then the training pair (the stashing forward and the
      hand-written backward) against autograd of the plain version: scores
      and stashes, and dx0, de0, datt and every weight gradient under a
      random cotangent that is non-zero on every edge, masked ones too; the
@@ -26,7 +26,10 @@ Phases, each fatal on failure:
      ``predict_scenes``, track assembly and ``evaluate_tracking`` with a
      full-width depth-6 ``MultimodalGNN`` of seeded random weights; its
      scores are held against the plain version; the kernel's launch counter
-     must show that the path went through it;
+     must show that the path went through it; then a ``'noop'`` ``PoseGNN``
+     through ``make_scorer``/``score_windows`` over the same windows (the
+     windows path, ``fused_logits_pose``): one launch per window batch,
+     scores held against the plain version window by window;
   3b. training path: the same scenes' encodings (``precompute_scene_encodings``)
      and one epoch of ``GNNTrainer.fit`` of a full-width depth-6
      ``MultimodalGNN`` with the ``configs/clr.yaml`` GNN settings from an
@@ -50,7 +53,9 @@ Phases, each fatal on failure:
      agree, 10 more lower the loss;
   4. timing: each kernel and its plain version with CUDA events on real
      main-path batches (inference, and the training pair at (256, 4096) x8,
-     the backward's device time per call by sub-kernel), the train step,
+     the device time per call by sub-kernel of the inference forward, the
+     stashing forward (also at the epoch's (256, 4096) x2) and the
+     backward), each beside its bounds (fp32 and 3xTF32), the train step,
      the paths' edges/s, and device-time profiles; the segment-sum kernel
      beside its plain version and ``index_add_`` with its device time per
      call, the active paths' edges/s, profile and train step.
@@ -92,6 +97,9 @@ MAX_REL_L2 = 1e-2
 # neighbour distances lie within this relative gap (f32 summation orders)
 NEAR_TIE = 1e-4
 FP32_PEAK = 67e12  # H100 SXM float32 FLOP/s outside the tensor cores
+# H100 SXM TF32 tensor-core FLOP/s; a float32-accurate product runs as three
+# TF32 products (3xTF32), so its peak is a third of this
+TF32_PEAK = 495e12
 HBM_RATE = 3.35e12  # H100 SXM bytes/s
 TRAINVAL_CLASS_MIX = (
     ["car"] * 5 + ["pedestrian"] * 3 + ["truck"] * 2
@@ -267,9 +275,18 @@ def train_work(inputs, widths, depth):
     return fwd_flops, bwd_flops, fwd_bytes, bwd_bytes
 
 
-def bound(flops, nbytes):
-    t_ops, t_bytes = flops / FP32_PEAK, nbytes / HBM_RATE
+def bound(flops, nbytes, peak=TF32_PEAK / 3):
+    """The least ms for this work: the larger of flops over ``peak`` (the
+    3xTF32 tensor-core rate the message-passing kernels run at, unless
+    given) and bytes over the memory rate."""
+    t_ops, t_bytes = flops / peak, nbytes / HBM_RATE
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def kernel_rows(rows, calls, width=40):
+    """Device ms per call of each row of a profile over ``calls`` calls."""
+    return "; ".join(f"{us / 1e3 / calls:.3f} ms x{count // calls} {key[:width]}"
+                     for us, key, count in rows)
 
 
 def train_grads(model, inputs, ct, depth, logits, fn):
@@ -612,8 +629,10 @@ def main() -> int:
             inputs = random_inputs(rng, windows, n, e, nd, ed, not pose, empty)
             flat, meta = extract_mp_params(model, not pose, nd, ed)
             got = fused_mp_scores_cuda(*inputs, flat, meta, 6, logits=pose)
+            again = fused_mp_scores_cuda(*inputs, flat, meta, 6, logits=pose)
             ref = fused_mp_scores_plain(*inputs, flat, meta, 6, logits=pose)
             torch.cuda.synchronize()
+            assert torch.equal(got, again), "two fused_mp runs differ"
             mask = inputs[-1]
             if empty:
                 assert torch.isfinite(got).all(), "padding window not finite"
@@ -625,14 +644,16 @@ def main() -> int:
             else:
                 err = float((got - ref).abs().max())
             log(f"kernel fused_mp {name} ({n},{e}) x{windows} empty={empty}: "
-                f"max|kernel-plain| {err:.3e} over {int(mask.sum())} valid edges")
+                f"max|kernel-plain| {err:.3e} over {int(mask.sum())} valid edges; "
+                "bit-identical across two runs")
             if (n, e) == (1024, 32768):
                 k_ms = cuda_ms(lambda: fused_mp_scores_cuda(*inputs, flat, meta, 6), 5)
                 p_ms = cuda_ms(lambda: fused_mp_scores_plain(*inputs, flat, meta, 6), 3)
                 _, _, w = pack_mp_weights(flat, meta, nd, ed, True)
                 flops, nbytes = mp_work(inputs, w, 6)
                 log(f"timing fused_mp at ({n},{e}) x1: kernel {k_ms:.3f} ms, plain "
-                    f"{p_ms:.3f} ms, bound {flops / FP32_PEAK * 1e3:.3f} ms "
+                    f"{p_ms:.3f} ms, bound {bound(flops, nbytes)[0]:.3f} ms 3xTF32, "
+                    f"{bound(flops, nbytes, FP32_PEAK)[0]:.3f} ms fp32 "
                     f"({flops / 1e9:.2f} GFLOP; operations)")
 
     # ---- 2b. the training pair against autograd of the plain version ----
@@ -796,6 +817,36 @@ def main() -> int:
     max_err = max(max_err, path_err)
     log(f"main path scores: max|kernel-plain| {path_err:.3e}")
 
+    # the windows path through the fused kernel: a 'noop' PoseGNN through
+    # make_scorer (fused_logits_pose, then a sigmoid) over the same windows,
+    # one launch per window batch, held window by window against the plain
+    # version on the same batches
+    all_windows = [w for ws in windows_list for w in ws]
+    noop_pose = init_params_(make_model("pose"),
+                             torch.Generator().manual_seed(5)).cuda().eval()
+    noop_scorer = make_scorer(noop_pose)
+    score_windows(noop_scorer, all_windows)  # warm-up
+    torch.cuda.synchronize()
+    fused_mp_scores.launches = 0
+    pose_scores = score_windows(noop_scorer, all_windows)
+    pose_launches = fused_mp_scores.launches
+    batches = sum(-(-v // 8) for v in buckets.values())
+    assert pose_launches == batches, (pose_launches, batches)
+    fused_mp.fused_mp_scores_cuda = fused_mp_scores_plain
+    try:
+        pose_plain = score_windows(noop_scorer, all_windows)
+    finally:
+        fused_mp.fused_mp_scores_cuda = fused_mp_scores_cuda
+    noop_pose_err = 0.0
+    for w, a, b in zip(all_windows, pose_scores, pose_plain):
+        assert a.shape == (w.num_edges,) and np.isfinite(a).all()
+        assert ((a >= 0) & (a <= 1)).all()
+        np.testing.assert_allclose(a, b, rtol=RTOL, atol=ATOL)
+        noop_pose_err = max(noop_pose_err, float(np.abs(a - b).max()))
+    max_err = max(max_err, noop_pose_err)
+    log(f"'noop' PoseGNN windows path: {len(all_windows)} windows in {pose_launches} "
+        f"fused_mp launches; max|kernel-plain| {noop_pose_err:.3e} window by window")
+
     # ---- 3b. the training path -------------------------------------------
     # the scenes' frozen-encoder outputs once, then one epoch of a full-width
     # depth-6 MultimodalGNN (configs/clr.yaml gnn: batch 2, lr 1e-4, weight
@@ -929,7 +980,6 @@ def main() -> int:
     # the windows path: an active PoseGNN through make_scorer
     active_pose = init_params_(make_model("pose", knn_conv_mode="active"),
                                torch.Generator().manual_seed(4)).cuda().eval()
-    all_windows = [w for ws in windows_list for w in ws]
     pose_scorer = make_scorer(active_pose)
 
     def pose_run(outs):
@@ -1032,14 +1082,21 @@ def main() -> int:
                      cuda_ms(lambda: fused_mp_scores_plain(*args), 5)]
         plain_ms, kernel_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
         flops, nbytes = mp_work(inputs, widths, depth)
-        bound_ms = max(flops / FP32_PEAK, nbytes / HBM_RATE) * 1e3
-        bound_by = "operations" if flops / FP32_PEAK >= nbytes / HBM_RATE else "bytes"
+        bound_ms, bound_by = bound(flops, nbytes)
+        fp32_ms = bound(flops, nbytes, FP32_PEAK)[0]
         timed[bucket] = (kernel_ms, plain_ms, bound_ms, bound_by)
         log(f"timing fused_mp at {bucket} x{inputs[0].shape[0]} ({int(inputs[-1].sum())} "
             f"valid edges): kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms (turns "
             "plain/kernel/kernel/plain " + "/".join(f"{t:.3f}" for t in turns) + " ms), "
-            f"bound {bound_ms:.3f} ms ({flops / 1e9:.2f} GFLOP, {nbytes / 2**20:.1f} MiB; "
-            f"{bound_by}), {flops / (kernel_ms * 1e-3) / 1e12:.2f} TFLOP/s")
+            f"bound {bound_ms:.3f} ms 3xTF32 / {fp32_ms:.3f} ms fp32 ({flops / 1e9:.2f} "
+            f"GFLOP, {nbytes / 2**20:.1f} MiB; {bound_by}), "
+            f"{flops / (kernel_ms * 1e-3) / 1e12:.2f} TFLOP/s")
+        reps = 5
+        with torch.inference_mode():
+            _, dev_ms, dev_rows = profile_device(
+                lambda: [fused_mp_scores_cuda(*args) for _ in range(reps)])
+        log(f"  device time per call {dev_ms / reps:.3f} ms; by sub-kernel: "
+            + kernel_rows(dev_rows[:8], reps))
     kernel_ms, plain_ms, bound_ms, bound_by = timed[(256, 4096)]
     del captured, args, inputs
 
@@ -1089,7 +1146,8 @@ def main() -> int:
         log(f"timing fused_mp_train_{tag} at (256, 4096) x8 ({int(inputs[-1].sum())} valid "
             f"edges): kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms (turns plain/kernel/kernel/"
             "plain " + "/".join(f"{t:.3f}" for t in turns) + f" ms), bound {b_ms:.3f} ms "
-            f"({flops / 1e9:.2f} GFLOP, {nbytes / 2**20:.1f} MiB; {b_by}), "
+            f"3xTF32 / {bound(flops, nbytes, FP32_PEAK)[0]:.3f} ms fp32 ({flops / 1e9:.2f} "
+            f"GFLOP, {nbytes / 2**20:.1f} MiB; {b_by}), "
             f"{flops / (k_ms * 1e-3) / 1e12:.2f} TFLOP/s")
     out_k = fwd(fused_mp_train_scores)
     reps = 5
@@ -1097,8 +1155,25 @@ def main() -> int:
     del out_k
     log(f"  backward device time per call {bwd_dev / reps:.3f} ms, "
         f"{b_flops / (bwd_dev / reps * 1e-3) / 1e12:.2f} TFLOP/s over the device time; by "
-        "sub-kernel: " + "; ".join(f"{us / 1e3 / reps:.3f} ms x{count // reps} {key[:40]}"
-                                  for us, key, count in bwd_rows[:8]))
+        "sub-kernel: " + kernel_rows(bwd_rows[:8], reps))
+    # the stashing forward's device time by sub-kernel, at this batch and at
+    # the epoch's own (256, 4096) x2
+    g2, enc2 = next(EncodedGraphBatcher(pairs, 2, uniform=True).epoch(shuffle=False))
+    dev2 = trainer._to_device((g2, enc2))
+    with torch.no_grad():
+        x2, e2, att2, _ = trainer.model.pre_message_passing(*dev2[:1], *dev2[1])
+    for label, fwd_in in (("x8", inputs), ("x2", (x2, e2, att2, dev2[0].edge_src,
+                                                  dev2[0].edge_dst, dev2[0].edge_mask))):
+        with torch.no_grad():
+            f_ms = cuda_ms(lambda: train_forward_cuda(*fwd_in, flat, meta, 6, False), 10)
+            _, f_dev, f_rows = profile_device(
+                lambda: [train_forward_cuda(*fwd_in, flat, meta, 6, False) for _ in range(reps)])
+        ff, _, fb, _ = train_work(fwd_in, widths, 6)
+        log(f"  stashing forward at (256, 4096) {label} ({int(fwd_in[-1].sum())} valid edges): "
+            f"{f_ms:.3f} ms by events, device time per call {f_dev / reps:.3f} ms, bound "
+            f"{bound(ff, fb)[0]:.3f} ms 3xTF32 / {bound(ff, fb, FP32_PEAK)[0]:.3f} ms fp32; by "
+            "sub-kernel: " + kernel_rows(f_rows[:8], reps))
+    del x2, e2, att2, dev2
     pair_k = timed_train["fwd"][0] + timed_train["bwd"][0]
     pair_p = timed_train["fwd"][1] + timed_train["bwd"][1]
     pair_b, pair_by = bound(f_flops + b_flops, f_bytes + b_bytes)
@@ -1166,7 +1241,7 @@ def main() -> int:
     seg_ms, seg_plain_ms = (turns[1] + turns[4]) / 2, (turns[0] + turns[5]) / 2
     seg_lib_ms = (turns[2] + turns[3]) / 2
     flops, nbytes = segment_work(data, ids, mask, n)
-    seg_bound_ms, seg_bound_by = bound(flops, nbytes)
+    seg_bound_ms, seg_bound_by = bound(flops, nbytes, FP32_PEAK)
     log(f"timing segment_sum at (256, 4096) x8, D=128 ({int(mask.sum())} valid edges, "
         f"main-path batch, ids {ids.dtype}): kernel {seg_ms:.4f} ms (one launch, no CSR "
         f"outside it), plain {seg_plain_ms:.4f} ms, index_add_ {seg_lib_ms:.4f} ms "
