@@ -1,4 +1,5 @@
-"""Build the package's CUDA sources into shared libraries and load them.
+"""Build the package's CUDA sources into shared libraries and load them,
+and count what their kernels ran (:func:`traced_launches`).
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into ``build/torch_kernels/lib<name>_<hash>.so`` at
@@ -14,9 +15,11 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
+import warnings
 from pathlib import Path
 from typing import Dict, Sequence
 
@@ -115,3 +118,41 @@ def load(name: str) -> ctypes.CDLL:
         fn.argtypes = [ctypes.c_void_p] * n_args
         fn.restype = restype
     return lib
+
+
+def kernel_names() -> set:
+    """The names of the ``__global__`` kernels in the package's sources."""
+    pattern = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(")
+    return {n for p in CSRC.glob("*.cu*") for n in pattern.findall(p.read_text())}
+
+
+def traced_launches(run) -> Dict[str, int]:
+    """Launches of each of the package's kernels during ``run()`` on the
+    GPU, as torch.profiler traces them: CUDA-graph replays included, which
+    the Python wrappers' launch counters cannot see. A first profiled step,
+    discarded, warms the tracer (a cold one may miss the first records)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    names = kernel_names()
+    events = []
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # events of one cycle only: wanted
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: events.extend(p.key_averages())) as prof:
+            torch.ones(1, device="cuda").add_(1)
+            torch.cuda.synchronize()
+            prof.step()
+            run()
+            torch.cuda.synchronize()
+            prof.step()
+    out: Dict[str, int] = {}
+    for ev in events:
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        for n in names:
+            if re.search(rf"(?<!\w){n}[(<]", ev.key):
+                out[n] = out.get(n, 0) + ev.count
+    return out

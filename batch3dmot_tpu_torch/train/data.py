@@ -6,13 +6,18 @@ shuffled with a numpy ``default_rng(seed)`` in the same order as the JAX
 package, and stacked ``batch_size`` at a time along a leading window
 dimension; an incomplete batch is filled with all-padding windows, so a
 batch always holds ``batch_size`` windows.
+
+:func:`materialize_graph_dataset` stacks a whole window set instead, for
+the device-resident epochs of ``GNNTrainer.fit_device``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, List, Sequence, Tuple
+import dataclasses
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from batch3dmot_tpu_torch.data.types import WindowGraphArrays
 from batch3dmot_tpu_torch.graph import (
@@ -146,3 +151,72 @@ def group_sizes_by_bucket(
     for i, (n, e) in enumerate(sizes):
         by_bucket.setdefault(pick_bucket(n, e, buckets), []).append(i)
     return sorted(by_bucket.items())
+
+
+def non_empty(items, what: str, window=lambda item: item):
+    """The items whose window has nodes and edges; raises when none has."""
+    kept = [x for x in items if window(x).num_nodes > 0 and window(x).num_edges > 0]
+    if not kept:
+        raise ValueError(f"{what}: no non-empty windows")
+    return kept
+
+
+def alloc_rows(g: PaddedGraph, rows: int) -> PaddedGraph:
+    """Zeroed [rows, ...] CPU tensors shaped like one [1, ...] graph ``g``."""
+    return PaddedGraph(**{
+        f.name: torch.zeros((rows, *getattr(g, f.name).shape[1:]),
+                            dtype=getattr(g, f.name).dtype)
+        for f in dataclasses.fields(g)
+    })
+
+
+def set_row(dst: PaddedGraph, k: int, g: PaddedGraph) -> None:
+    """Row ``k`` of the stacked ``dst`` from the one-window [1, ...] ``g``."""
+    for f in dataclasses.fields(dst):
+        getattr(dst, f.name)[k] = getattr(g, f.name)[0]
+
+
+def materialize_graph_datasets(
+    windows, buckets: Sequence[Tuple[int, int]] = DEFAULT_BUCKETS
+):
+    """List of device-resident dataset groups, one per occupied bucket
+    (:func:`group_sizes_by_bucket`); ``GNNTrainer.fit_device`` runs each
+    group's steps in turn every epoch."""
+    items = non_empty(windows, "materialize_graph_datasets")
+    groups = group_sizes_by_bucket([(w.num_nodes, w.num_edges) for w in items], buckets)
+    return [materialize_graph_dataset([items[i] for i in idxs], bucket=b)
+            for b, idxs in groups]
+
+
+def materialize_graph_dataset(
+    windows, buckets: Sequence[Tuple[int, int]] = DEFAULT_BUCKETS,
+    bucket: Optional[Tuple[int, int]] = None,
+):
+    """The whole (modality-free) window set as one stacked PaddedGraph of
+    CPU tensors for ``GNNTrainer.fit_device`` (the pose-model counterpart
+    of ``train.encoded.materialize_encoded_dataset``): every window padded
+    to one bucket and stacked on a leading [W+1] axis, with an empty window
+    at index W for padding the last batch. Preallocated [W+1, ...] buffers
+    are filled row by row (stacking copies would double the host memory for
+    a moment). Returns (graphs, None, bucket)."""
+    items = non_empty(windows, "materialize_graph_dataset")
+    mn, me = bucket or single_bucket_for(
+        [(w.num_nodes, w.num_edges) for w in items], buckets
+    )
+
+    def one(w):
+        return batch_graphs([pad_graph(
+            pose=w.pose, edge_src=w.edge_src, edge_dst=w.edge_dst,
+            edge_attr=w.edge_attr, node_time=w.node_time,
+            node_class=w.node_class, max_nodes=mn, max_edges=me,
+            edge_label=w.edge_label, edge_weight=w.edge_weight,
+            include_modalities=False,
+        )])
+
+    g0 = one(items[0])
+    graphs = alloc_rows(g0, len(items) + 1)
+    set_row(graphs, 0, g0)
+    for k, w in enumerate(items[1:], start=1):
+        set_row(graphs, k, one(w))
+    set_row(graphs, len(items), batch_graphs([empty_graph(mn, me, include_modalities=False)]))
+    return graphs, None, (mn, me)

@@ -5,11 +5,17 @@ The frozen ResNet/PointNet/RadarNet outputs are constants of the data, so
 they are computed once per scene (:func:`precompute_scene_encodings`) and
 the GNN trains on gathered embeddings (:class:`EncodedGraphBatcher`): the
 same numbers as running the encoders in every step, without their cost.
+
+For the device-resident epochs of ``GNNTrainer.fit_device`` the whole set
+is stacked once: per window in the dense form
+(:func:`materialize_encoded_dataset`), or as one table of every distinct
+detection plus per-window rows into it in the deduplicated form
+(:func:`materialize_encoded_dataset_dedup`).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, List, Sequence, Tuple
+from typing import Any, Dict, Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -27,9 +33,18 @@ from batch3dmot_tpu_torch.graph import (
     pad_graph,
     pick_bucket,
 )
-from batch3dmot_tpu_torch.train.data import uniform_bucket
+from batch3dmot_tpu_torch.train.data import (
+    alloc_rows,
+    group_sizes_by_bucket,
+    materialize_graph_dataset,
+    non_empty,
+    set_row,
+    single_bucket_for,
+    uniform_bucket,
+)
 
 ENC_DIMS = {"x_img": 96, "pn": 256, "rn": 256}
+ENC_KEYS = ("x_img", "pn", "rn", "lidar_present", "radar_present")
 
 
 def precompute_scene_encodings(
@@ -156,3 +171,125 @@ class EncodedGraphBatcher:
                 [w for w, _ in pairs], [e for _, e in pairs],
                 self.batch_size, mn, me,
             )
+
+
+def _items(windows_with_encodings, what):
+    return non_empty(windows_with_encodings, what, window=lambda item: item[0])
+
+
+def materialize_encoded_datasets(windows_with_encodings, buckets=DEFAULT_BUCKETS):
+    """List of device-resident dataset groups, one per occupied bucket
+    (``train.data.group_sizes_by_bucket``); ``GNNTrainer.fit_device`` runs
+    each group's steps in turn every epoch."""
+    items = _items(windows_with_encodings, "materialize_encoded_datasets")
+    groups = group_sizes_by_bucket([(w.num_nodes, w.num_edges) for w, _ in items], buckets)
+    return [materialize_encoded_dataset([items[i] for i in idxs], bucket=b)
+            for b, idxs in groups]
+
+
+class DedupEncodings(NamedTuple):
+    """Device-resident encodings in deduplicated form: one table of every
+    distinct detection's embeddings, gathered by row inside each step,
+    instead of per-window buffers [W+1, mn, 608] that copy a detection's
+    embedding once per window it appears in (about L times at window
+    length L, plus the node padding)."""
+
+    # [W+1, mn] int32 rows into ``table``; padded node slots and the empty
+    # window point at the all-zero row D
+    det_index: Any
+    # (x_img [D+1, 96], pn [D+1, 256], rn [D+1, 256],
+    #  lidar_present [D+1] bool, radar_present [D+1] bool)
+    table: Tuple[Any, Any, Any, Any, Any]
+
+
+def build_encoding_table(encs: Sequence[Dict[str, np.ndarray]]):
+    """Concatenate the distinct per-scene encoding tables (distinct by
+    object identity: the windows of one scene share their scene's dict)
+    into one table of CPU tensors with an all-zero row appended at index D.
+    Returns ``(table, {id(enc): row offset}, D)``."""
+    offsets: Dict[int, int] = {}
+    uniq: List[Dict[str, np.ndarray]] = []
+    total = 0
+    for enc in encs:
+        if id(enc) in offsets:
+            continue
+        offsets[id(enc)] = total
+        uniq.append(enc)
+        total += len(enc["x_img"])
+    tails = {**{k: (d,) for k, d in ENC_DIMS.items()}, "lidar_present": (), "radar_present": ()}
+    table = tuple(
+        torch.from_numpy(np.concatenate(
+            [np.asarray(e[k]) for e in uniq]
+            + [np.zeros((1, *tails[k]), bool if k.endswith("present") else np.float32)]))
+        for k in ENC_KEYS
+    )
+    return table, offsets, total
+
+
+def materialize_encoded_dataset_dedup(
+    windows_with_encodings: Sequence[Tuple[WindowGraphArrays, Dict[str, np.ndarray]]],
+    buckets: Sequence[Tuple[int, int]] = DEFAULT_BUCKETS,
+    bucket: Optional[Tuple[int, int]] = None,
+    _shared: Optional[Tuple] = None,
+) -> Tuple[PaddedGraph, DedupEncodings, Tuple[int, int]]:
+    """:func:`materialize_encoded_dataset` with the encodings in
+    :class:`DedupEncodings` form (the same training numbers: the gather on
+    the device returns the rows the dense form gathers on the host).
+    ``_shared`` passes a prebuilt ``(table, offsets, D)`` from the plural
+    form, so that every group holds the same table object (which the
+    trainer uploads once)."""
+    items = _items(windows_with_encodings, "materialize_encoded_dataset_dedup")
+    mn, me = bucket or single_bucket_for(
+        [(w.num_nodes, w.num_edges) for w, _ in items], buckets
+    )
+    table, offsets, total = _shared or build_encoding_table([e for _, e in items])
+    graphs, _, _ = materialize_graph_dataset([w for w, _ in items], bucket=(mn, me))
+    det_index = np.full((len(items) + 1, mn), total, np.int32)
+    for k, (w, e) in enumerate(items):
+        det_index[k, : w.num_nodes] = offsets[id(e)] + w.det_index
+    return graphs, DedupEncodings(torch.from_numpy(det_index), table), (mn, me)
+
+
+def materialize_encoded_datasets_dedup(windows_with_encodings, buckets=DEFAULT_BUCKETS):
+    """Per-bucket groups (:func:`materialize_encoded_datasets`) in dedup
+    form; every group holds the same encoding table object."""
+    items = _items(windows_with_encodings, "materialize_encoded_datasets_dedup")
+    shared = build_encoding_table([e for _, e in items])
+    groups = group_sizes_by_bucket([(w.num_nodes, w.num_edges) for w, _ in items], buckets)
+    return [
+        materialize_encoded_dataset_dedup([items[i] for i in idxs], bucket=b, _shared=shared)
+        for b, idxs in groups
+    ]
+
+
+def materialize_encoded_dataset(
+    windows_with_encodings: Sequence[Tuple[WindowGraphArrays, Dict[str, np.ndarray]]],
+    buckets: Sequence[Tuple[int, int]] = DEFAULT_BUCKETS,
+    bucket: Optional[Tuple[int, int]] = None,
+) -> Tuple[PaddedGraph, Tuple, Tuple[int, int]]:
+    """The whole encoded dataset stacked once for ``GNNTrainer.fit_device``
+    (which uploads it once): every window padded to one bucket and stacked
+    on a leading [W+1] axis of CPU tensors, with an empty window at index W
+    for padding the last batch (its edges are all masked, so it adds
+    nothing to the loss, as the host batcher's padding windows). The
+    preallocated buffers are filled row by row. Returns (graphs [W+1, ...],
+    encodings tuple [W+1, ...], bucket)."""
+    items = _items(windows_with_encodings, "materialize_encoded_dataset")
+    mn, me = bucket or single_bucket_for(
+        [(w.num_nodes, w.num_edges) for w, _ in items], buckets
+    )
+    rows = len(items) + 1
+    g0, e0 = _assemble_encoded_batch([items[0][0]], [items[0][1]], 1, mn, me)
+    graphs = alloc_rows(g0, rows)
+    encs = tuple(torch.zeros((rows, *a.shape[1:]), dtype=a.dtype) for a in e0)
+
+    def fill(k, g1, e1):
+        set_row(graphs, k, g1)
+        for dst, src in zip(encs, e1):
+            dst[k] = src[0]
+
+    fill(0, g0, e0)
+    for k, (w, e) in enumerate(items[1:], start=1):
+        fill(k, *_assemble_encoded_batch([w], [e], 1, mn, me))
+    fill(rows - 1, *_assemble_encoded_batch([], [], 1, mn, me))  # the empty window
+    return graphs, encs, (mn, me)

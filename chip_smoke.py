@@ -37,7 +37,9 @@ Phases, each fatal on failure:
      equal the steps, the frozen encoders must not move, the epoch
      checkpoint must load into a fresh model; on one fixed batch, 3 steps
      through the kernels and 3 through the plain version give the same
-     losses, and 10 more steps lower the loss;
+     losses, and 10 more steps lower the loss; 3 ``train_step``s on raw
+     window batches (crops, points, radar; the frozen encoders inside the
+     step) give the losses of the same steps from the encodings;
   3c. active inference: the same workload through ``score_scenes``,
      ``predict_scenes``, tracks and AMOTA with a full-width depth-6
      ``MultimodalGNN(knn_conv_mode='active')``, then an active ``PoseGNN``
@@ -51,12 +53,24 @@ Phases, each fatal on failure:
      ``pose`` from window batches; 18 launches per step, frozen encoders
      unchanged, 3 steps through the kernel and 3 through the plain version
      agree, 10 more lower the loss;
+  3e. device-resident training on the same 48 windows and encodings: one
+     epoch of ``fit_device`` (each step a replay of one captured CUDA graph)
+     against host ``train_step``s on the same index rows, loss by loss; the
+     dedup form against the dense one (the gathered batches bit-identical);
+     ``fused_steps=4`` against eager steps, with one host wait per group;
+     the ``'noop'`` ``PoseGNN`` through ``fit`` and ``fit_device``; the
+     active ``mm`` through ``fit_device`` (18 segment sums per step) against
+     eager steps; for each graphed path an epoch of replays alone, traced
+     by the profiler, runs each of the port's kernels exactly steps times
+     as often as one eager step does, and no wrapper launches anything;
   4. timing: each kernel and its plain version with CUDA events on real
      main-path batches (inference, and the training pair at (256, 4096) x8,
      the device time per call by sub-kernel of the inference forward, the
      stashing forward (also at the epoch's (256, 4096) x2) and the
      backward), each beside its bounds (fp32 and 3xTF32), the train step,
-     the paths' edges/s, and device-time profiles; the segment-sum kernel
+     the paths' edges/s, and device-time profiles; the four training epoch
+     forms (``fit``, ``fit_device`` dense and dedup, ``fused_steps=4``):
+     wall ms, edges/s, device busy share and Adam's device ms; the segment-sum kernel
      beside its plain version and ``index_add_`` with its device time per
      call, the active paths' edges/s, profile and train step.
 
@@ -70,11 +84,13 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import json
 import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -361,11 +377,78 @@ def profile_device(run):
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # device-side events only: the operator rows repeat their kernels' time
+    # device-side events only: the operator rows repeat their kernels' time,
+    # and a record_function's span on the device (Adam.step's) repeats that
+    # of the kernels inside it
     rows = sorted(((ev.self_device_time_total, ev.key, ev.count)
-                   for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA),
+                   for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA
+                   and not getattr(ev, "is_user_annotation", False)),
                   reverse=True)
     return wall_ms, sum(r[0] for r in rows) / 1e3, rows
+
+
+def counters(reset=False):
+    """The kernel wrappers' launch counters, set to 0 first when ``reset``."""
+    from batch3dmot_tpu_torch.ops.fused_mp import fused_mp_scores
+    from batch3dmot_tpu_torch.ops.fused_mp_train import fused_mp_train_scores
+    from batch3dmot_tpu_torch.ops.segment_kernel import segment_sum
+
+    table = dict(fused_mp=(fused_mp_scores, "launches"),
+                 fwd=(fused_mp_train_scores, "fwd_launches"),
+                 bwd=(fused_mp_train_scores, "bwd_launches"),
+                 segment_sum=(segment_sum, "launches"))
+    if reset:
+        for fn, attr in table.values():
+            setattr(fn, attr, 0)
+    return {k: getattr(fn, attr) for k, (fn, attr) in table.items()}
+
+
+def record_losses(trainer):
+    """A list that receives the loss of every step ``trainer`` runs on the
+    device (fit_device, fused_steps) from the rows its groups fetch."""
+    losses = []
+    accumulate = trainer._accumulate_device_metrics
+
+    def recording(metrics, prefix, rows):
+        if prefix == "train":
+            losses.extend(float(r[0]) for r in rows)
+        accumulate(metrics, prefix, rows)
+
+    trainer._accumulate_device_metrics = recording
+    return losses
+
+
+def batch_tensors(batch):
+    """Every tensor of a (PaddedGraph, encodings) batch."""
+    graph, enc = batch
+    return [getattr(graph, f.name) for f in dataclasses.fields(graph)] + list(enc)
+
+
+def max_param_diff(a, b):
+    """Largest |difference| between two trainers' model states, and the
+    name of the tensor that holds it."""
+    return max((float((x - y).abs().max()), k)
+               for (k, x), y in zip(a.model.state_dict().items(), b.model.state_dict().values()))
+
+
+def max_rel_diff(got, want):
+    """Largest |got - want| / |want| over two sequences of losses."""
+    return float(np.max(np.abs(np.subtract(got, want)) / np.abs(want)))
+
+
+def count_syncs(run):
+    """Times ``run()`` made the host wait for the card, as PyTorch's
+    synchronisation debug mode reports them (one warning per wait)."""
+    import torch
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
 
 
 def segment_inputs(rng, lead, n, e, d, empty=False):
@@ -580,12 +663,19 @@ def main() -> int:
         segment_sum_cuda,
         segment_sum_plain,
     )
-    from batch3dmot_tpu_torch.train.data import GraphBatcher
+    from batch3dmot_tpu_torch.train.data import GraphBatcher, materialize_graph_dataset
     from batch3dmot_tpu_torch.train.encoded import (
         EncodedGraphBatcher,
+        materialize_encoded_dataset,
+        materialize_encoded_datasets_dedup,
         precompute_scene_encodings,
     )
-    from batch3dmot_tpu_torch.train.trainer import FROZEN_ENCODERS, GNNTrainer
+    from batch3dmot_tpu_torch.train.trainer import (
+        FROZEN_ENCODERS,
+        GNNTrainer,
+        epoch_batches,
+        index_rows,
+    )
     from batch3dmot_tpu_torch.utils.checkpoint import load_checkpoint
 
     t_start = time.perf_counter()
@@ -914,6 +1004,31 @@ def main() -> int:
         f"{[f'{v:.6f}' for v in lp]}; after 10 more steps {more[-1]:.6f}")
     del tk, tp
 
+    # mm on raw window batches (crops, points and radar): the frozen encoders
+    # run inside each step; 3 steps against the same steps from the
+    # precomputed encodings (the two batchers draw the same batches)
+    raw = list(GraphBatcher(all_windows, 2, seed=3, uniform=True).epoch())[:3]
+    encoded = list(EncodedGraphBatcher(pairs, 2, seed=3, uniform=True).epoch())[:3]
+    for rb, (eg, _) in zip(raw, encoded):
+        assert torch.equal(rb.edge_src, eg.edge_src) and torch.equal(rb.pose, eg.pose)
+    assert raw[0].img.shape[-3:] == (32, 32, 3) and raw[0].lidar.shape[-2:] == (128, 3)
+    t_raw = GNNTrainer(make_model("mm"), GNNConfig(**clr), init_state_dict=start_sd)
+    t_enc = GNNTrainer(make_model("mm"), GNNConfig(**clr), init_state_dict=start_sd)
+    fused_mp_train_scores.fwd_launches = 0
+    l_raw = [float(t_raw.train_step(b)[0]) for b in raw]
+    raw_launches = fused_mp_train_scores.fwd_launches
+    l_enc = [float(t_enc.train_step(b)[0]) for b in encoded]
+    np.testing.assert_allclose(l_raw, l_enc, rtol=1e-4)
+    assert raw_launches == 3, raw_launches
+    state = t_raw.model.state_dict()
+    for k, v in frozen0.items():
+        assert torch.equal(state[k], v), f"frozen {k} moved"
+    log(f"raw-window training mm: 3 train_steps of {tuple(raw[0].img.shape)} crops, encoders "
+        f"inside the step: losses {[f'{v:.6f}' for v in l_raw]}, from precomputed encodings "
+        f"{[f'{v:.6f}' for v in l_enc]}; max rel diff "
+        f"{max(abs(a - b) / abs(b) for a, b in zip(l_raw, l_enc)):.2e}; frozen encoders unchanged")
+    del t_raw, t_enc, raw, encoded
+
     # ---- 3c. active inference: the kNN GATConv path -----------------------
     # a full-width depth-6 MultimodalGNN in knn_conv_mode='active' (k = 20):
     # the module loop, where every segment sum (2 per layer, 2 per conv on
@@ -1055,6 +1170,188 @@ def main() -> int:
             + f"; one batch: kernel losses {[f'{v:.6f}' for v in lk]}, plain "
             f"{[f'{v:.6f}' for v in lp]}; after 10 more steps {more[-1]:.6f}")
         del tr, tp
+
+    # ---- 3e. device-resident training --------------------------------------
+    # the 48 windows and encodings of 3b stacked once; fit_device (one epoch,
+    # seed 7) gathers every batch on the card by index, and each step is one
+    # replay of a captured CUDA graph (forward, the kernel pair, backward,
+    # fused Adam, the metrics): held step by step against host train_steps
+    # on the same index rows; then the dedup form against the dense one, K =
+    # 4 steps per dispatch against eager steps, the 'noop' PoseGNN through
+    # fit and fit_device, and the active mm through fit_device. A replay
+    # runs its kernels without their wrappers: an epoch of replays only runs
+    # under the profiler, its wrappers must count nothing, and it must run
+    # each of the port's kernels steps times as often as one eager step does
+    # (whose wrappers count one launch each)
+    clr_cfg = GNNConfig(**clr)
+    lr = clr["lr"]
+    dense_ds = materialize_encoded_dataset(pairs)
+    dedup_ds = materialize_encoded_datasets_dedup(pairs)
+    assert len(dedup_ds) == 1, len(dedup_ds)
+    host_batches = epoch_batches(dense_ds, 2, 7)
+    steps = len(host_batches)
+
+    def resident(name, sd, ds, mode="noop"):
+        """A fresh trainer from ``sd`` after one fit_device epoch (seed 7),
+        its history and the loss of each step."""
+        tr = GNNTrainer(make_model(name, knn_conv_mode=mode), clr_cfg, init_state_dict=sd)
+        losses = record_losses(tr)
+        (hist,) = tr.fit_device(ds, epochs=1, verbose=False, seed=7)
+        return tr, hist, losses
+
+    def eager_steps(tr, batches):
+        """The losses of train_steps on ``batches``, the kernels of the
+        first step (traced) and its wrappers' launches."""
+        first = []
+        counters(reset=True)
+        per_step = cuda_build.traced_launches(
+            lambda: first.append(float(tr.train_step(batches[0])[0])))
+        launched = counters()
+        return first + [float(tr.train_step(b)[0]) for b in batches[1:]], per_step, launched
+
+    def replayed(tr, run, n, per_step):
+        """``run()``, an epoch of ``n`` replays and nothing else, traced:
+        the port's kernels it ran, n times one eager step's."""
+        before = tr.graph_replays
+        counters(reset=True)
+        got = cuda_build.traced_launches(run)
+        assert tr.graph_replays - before == n, (tr.graph_replays, before, n)
+        assert not any(counters().values()), counters()
+        assert per_step and got == {k: n * v for k, v in per_step.items()}, (got, per_step, n)
+        return ", ".join(f"{k} {v}" for k, v in sorted(got.items()))
+
+    t_dense, h_dense, dense_losses = resident("mm", start_sd, dense_ds)
+    t_host = GNNTrainer(make_model("mm"), clr_cfg, init_state_dict=start_sd)
+    host_losses, mm_step, c_step = eager_steps(t_host, host_batches)
+    assert c_step["fwd"] == c_step["bwd"] == 1, c_step
+    np.testing.assert_allclose(dense_losses, host_losses, rtol=1e-4)
+    np.testing.assert_allclose(h_dense["train/loss"], np.mean(host_losses), rtol=1e-4)
+    dense_diff, dense_at = max_param_diff(t_dense, t_host)
+    assert dense_diff <= 2 * lr * steps, dense_diff
+    state = t_dense.model.state_dict()
+    for k, v in frozen0.items():
+        assert torch.equal(state[k], v), f"frozen {k} moved"
+    log(f"fit_device dense mm: {steps} steps, {t_dense.graph_replays} graph replays; losses "
+        f"step by step vs host train_steps: max rel diff "
+        f"{max_rel_diff(dense_losses, host_losses):.2e} "
+        f"(epoch {h_dense['train/loss']:.6f}); max |param diff| {dense_diff:.2e} ({dense_at}; "
+        f"bound {2 * lr * steps:.1e}); frozen encoders unchanged")
+
+    # the same epoch in dedup form: the gather through det_index returns the
+    # dense gather's batch bit for bit, row by row
+    t_dedup, h_dedup, dedup_losses = resident("mm", start_sd, dedup_ds)
+    (r_dense,) = t_dense._upload_dataset_groups([dense_ds])
+    (r_dedup,) = t_dedup._upload_dataset_groups(dedup_ds)
+    rows = torch.from_numpy(index_rows(np.random.default_rng(7).permutation(r_dense.n_items),
+                                       r_dense.n_items, 2)).cuda()
+    for row in rows:
+        got = batch_tensors(GNNTrainer._gather_device_batch(r_dedup.graphs, r_dedup.enc, row))
+        want = batch_tensors(GNNTrainer._gather_device_batch(r_dense.graphs, r_dense.enc, row))
+        assert all(torch.equal(x, y) for x, y in zip(got, want)), row
+    np.testing.assert_allclose(dedup_losses, dense_losses, rtol=1e-4)
+    dedup_diff, dedup_at = max_param_diff(t_dedup, t_dense)
+    assert dedup_diff <= 2 * lr * steps, dedup_diff
+    dense_bytes = sum(t.numel() * t.element_size() for t in dense_ds[1])
+    dedup_bytes = sum(g[1].det_index.numel() * 4 for g in dedup_ds) + sum(
+        t.numel() * t.element_size() for t in dedup_ds[0][1].table)
+    log(f"fit_device dedup mm: {len(dedup_ds)} group, the {len(rows)} gathered batches "
+        f"bit-identical to the dense form's; losses step by step vs dense: max rel diff "
+        f"{max_rel_diff(dedup_losses, dense_losses):.2e}; "
+        f"max |param diff| from dense {dedup_diff:.2e} ({dedup_at}); encodings on the card "
+        f"{dense_bytes / 2**20:.2f} MiB dense vs {dedup_bytes / 2**20:.2f} MiB dedup")
+
+    syncs_dense = count_syncs(lambda: t_dense.fit_device(dense_ds, epochs=1, verbose=False))
+    assert syncs_dense == 1, syncs_dense
+    rep_dense = replayed(t_dense, lambda: t_dense.fit_device(dense_ds, epochs=1, verbose=False),
+                         steps, mm_step)
+    rep_dedup = replayed(t_dedup, lambda: t_dedup.fit_device(dedup_ds, epochs=1, verbose=False),
+                         steps, mm_step)
+    log(f"fit_device replays: host syncs in an epoch {syncs_dense} (one group); one eager step "
+        f"(wrappers fwd/bwd {c_step['fwd']}/{c_step['bwd']}) runs "
+        + ", ".join(f"{k} x{v}" for k, v in sorted(mm_step.items()))
+        + f"; an epoch of {steps} replays, no wrapper launch: dense {rep_dense}; dedup "
+        + ("the same" if rep_dedup == rep_dense else rep_dedup))
+    del t_host, t_dedup, r_dense, r_dedup
+
+    t_fused = GNNTrainer(make_model("mm"), clr_cfg, init_state_dict=start_sd)
+    t_eager = GNNTrainer(make_model("mm"), clr_cfg, init_state_dict=start_sd)
+    fused_losses = record_losses(t_fused)
+    m_fused = t_fused.train_epoch(EncodedGraphBatcher(pairs, 2, seed=0, uniform=True),
+                                  fused_steps=4)
+    eager_batches = list(EncodedGraphBatcher(pairs, 2, seed=0, uniform=True).epoch())
+    eager_losses = [float(t_eager.train_step(b)[0]) for b in eager_batches]
+    np.testing.assert_allclose(fused_losses, eager_losses, rtol=1e-4)
+    fused_rel = max_rel_diff(fused_losses, eager_losses)  # the later epochs add to the list
+    np.testing.assert_allclose(m_fused["train/loss"], np.mean(eager_losses), rtol=1e-4)
+    fused_diff, fused_at = max_param_diff(t_fused, t_eager)
+    assert fused_diff <= 2 * lr * t_eager.step, fused_diff
+    assert t_fused.graph_replays == t_eager.step == 24, (t_fused.graph_replays, t_eager.step)
+    groups = -(-t_eager.step // 4)
+    syncs_fused = count_syncs(lambda: t_fused.train_epoch(
+        EncodedGraphBatcher(pairs, 2, seed=1, uniform=True), fused_steps=4))
+    assert syncs_fused == groups, (syncs_fused, groups)
+    rep_fused = replayed(t_fused, lambda: t_fused.train_epoch(
+        EncodedGraphBatcher(pairs, 2, seed=2, uniform=True), fused_steps=4), 24, mm_step)
+    log(f"fused_steps=4 mm: {t_eager.step} steps in {groups} groups, 24 graph replays; losses "
+        f"step by step vs eager: max rel diff "
+        f"{fused_rel:.2e} "
+        f"(epoch {m_fused['train/loss']:.6f}), max |param diff| {fused_diff:.2e} ({fused_at}); "
+        f"host syncs per group in a second epoch: {syncs_fused / groups:g}; a third epoch, "
+        f"no wrapper launch: " + ("as fit_device's" if rep_fused == rep_dense else rep_fused))
+    del t_fused, t_eager
+
+    # the 'noop' PoseGNN (the windows path's model) through GNNTrainer: fit
+    # on window batches, then fit_device on the stacked windows (one epoch,
+    # then one of replays only), then 10 more steps on one batch lower the
+    # loss
+    pose_cfg = GNNConfig(batch_size=2, lr=1e-3, weight_decay=0.0)
+    pose_start = {k: v.clone() for k, v in noop_pose.state_dict().items()}
+    t_pose = GNNTrainer(make_model("pose"), pose_cfg, init_state_dict=pose_start)
+    pose_b = GraphBatcher(all_windows, 2, seed=0)
+    counters(reset=True)
+    (h_pose,) = t_pose.fit(pose_b, epochs=1, verbose=False)
+    c_fit = counters()
+    assert c_fit["fwd"] == c_fit["bwd"] == len(pose_b), (c_fit, len(pose_b))
+    pose_ds = materialize_graph_dataset(all_windows)
+    (h_pose_dev,) = t_pose.fit_device(pose_ds, epochs=1, verbose=False, seed=7)
+    pose_steps = -(-(pose_ds[0].pose.shape[0] - 1) // 2)
+    t_cal = GNNTrainer(make_model("pose"), pose_cfg, init_state_dict=pose_start)
+    _, pose_step, c_cal = eager_steps(t_cal, epoch_batches(pose_ds, 2, 7)[:1])
+    assert c_cal["fwd"] == c_cal["bwd"] == 1, c_cal
+    rep_pose = replayed(t_pose, lambda: t_pose.fit_device(pose_ds, epochs=1, verbose=False,
+                                                          seed=8), pose_steps, pose_step)
+    batch = next(GraphBatcher(all_windows, 2, seed=2).epoch())
+    first = float(t_pose.train_step(batch)[0])
+    more = [float(t_pose.train_step(batch)[0]) for _ in range(10)]
+    assert np.isfinite([h_pose["train/loss"], h_pose_dev["train/loss"]]).all()
+    assert more[-1] < first, (first, more)
+    log(f"'noop' PoseGNN training: fit {len(pose_b)} steps (launches {c_fit['fwd']}/"
+        f"{c_fit['bwd']}), loss {h_pose['train/loss']:.6f}; fit_device {pose_steps} steps, "
+        f"loss {h_pose_dev['train/loss']:.6f}; an epoch of {pose_steps} replays, no wrapper "
+        f"launch: {rep_pose}; one batch {first:.6f} -> {more[-1]:.6f} after 10 more steps")
+    del t_pose, t_cal
+
+    # the active mm: the module loop with the kNN GATConv, 18 segment sums
+    # per forward, through fit_device on 8 windows of the active encodings,
+    # against eager train_steps on the same rows
+    act_ds = materialize_encoded_dataset(pairs_a[:8])
+    act_batches = epoch_batches(act_ds, 2, 7)
+    t_act, h_act, act_dev_losses = resident("mm", active_sd, act_ds, mode="active")
+    t_ref = GNNTrainer(make_model("mm", knn_conv_mode="active"), clr_cfg,
+                       init_state_dict=active_sd)
+    act_losses, act_step, c_act = eager_steps(t_ref, act_batches)
+    assert c_act["segment_sum"] == act_step.get("segment_sum_kernel") == 18, (c_act, act_step)
+    np.testing.assert_allclose(act_dev_losses, act_losses, rtol=1e-4)
+    act_rel = max_rel_diff(act_dev_losses, act_losses)
+    act_diff, act_at = max_param_diff(t_act, t_ref)
+    assert act_diff <= 2 * lr * len(act_batches), act_diff
+    rep_act = replayed(t_act, lambda: t_act.fit_device(act_ds, epochs=1, verbose=False),
+                       len(act_batches), act_step)
+    log(f"fit_device active mm: {len(act_batches)} steps; losses step by step vs eager: max "
+        f"rel diff {act_rel:.2e} (epoch "
+        f"{h_act['train/loss']:.6f}); max |param diff| {act_diff:.2e} ({act_at}); an "
+        f"epoch of {len(act_batches)} replays, no wrapper launch: {rep_act}")
+    del t_act, t_ref
 
     # ---- 4. timing -----------------------------------------------------
     # the first full batch of the (256, 4096) bucket, with the inputs the
@@ -1206,6 +1503,34 @@ def main() -> int:
         f"({100 * device_ms / wall_ms:.1f}%)")
     for us, key, count in rows[:12]:
         log(f"  {us / 1e3:9.3f} ms  x{count:<4d} {key[:90]}")
+
+    # the four epoch forms over the same 24 steps of (256, 4096) x2, each
+    # warm (its graphs captured): host-batched fit, fit_device dense and
+    # dedup, and fit with fused_steps=4; the wall time of one epoch ending
+    # in a synchronise, then a profiled one (kernels' device time; Adam's
+    # kernels summed)
+    t4 = GNNTrainer(make_model("mm"), clr_cfg, init_state_dict=start_sd)
+    form_b = EncodedGraphBatcher(pairs, 2, seed=0, uniform=True)
+    forms = {
+        "fit": lambda: t4.fit(form_b, epochs=1, verbose=False),
+        "fit_device dense": lambda: t4.fit_device(dense_ds, epochs=1, verbose=False),
+        "fit_device dedup": lambda: t4.fit_device(dedup_ds, epochs=1, verbose=False),
+        "fit fused_steps=4": lambda: t4.fit(form_b, epochs=1, verbose=False, fused_steps=4),
+    }
+    for name, run in forms.items():
+        run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        epoch_ms = (time.perf_counter() - t0) * 1e3
+        wall_ms, device_ms, rows = profile_device(run)
+        adam_ms = sum(us for us, key, _ in rows if "adam" in key.lower()) / 1e3
+        log(f"epoch form {name}: {epoch_ms:.2f} ms, {train_edges / (epoch_ms / 1e3):.0f} "
+            f"training edges/s; profiled: wall {wall_ms:.2f} ms, device busy {device_ms:.2f} ms "
+            f"({100 * device_ms / wall_ms:.1f}%), Adam's kernels {adam_ms:.3f} ms; top: "
+            + kernel_rows(rows[:4], 1, 50))
+    del t4
 
     # ---- 4c. the segment-sum kernel and the active paths ------------------
     # the kernel's inputs at the first mm message-passing sum of a (256, 4096)

@@ -1,8 +1,8 @@
 """Import hygiene of the PyTorch port: it imports no JAX, no flax and
-nothing of ``batch3dmot_tpu``, it imports, scores and takes a training
-step without ``nvcc`` or a GPU (in both kNN-conv modes), and its
-default-device entry points (scorers, trainer) refuse to run on the CPU
-unless asked to."""
+nothing of ``batch3dmot_tpu``, it imports, scores, takes a training step
+and runs device-resident and K-step epochs without ``nvcc`` or a GPU (in
+both kNN-conv modes), and its default-device entry points (scorers,
+trainer) refuse to run on the CPU unless asked to."""
 
 import os
 import subprocess
@@ -60,6 +60,21 @@ SCRIPT = textwrap.dedent(
     trainer = GNNTrainer(make_model("mm", depth=1), GNNConfig(), device="cpu")
     loss, _ = trainer.train_step(batch)
     assert np.isfinite(float(loss)) and trainer.step == 1
+
+    # device-resident epochs (dense and dedup encodings, graphs) and K steps
+    # per dispatch
+    from batch3dmot_tpu_torch.train.data import GraphBatcher, materialize_graph_dataset
+    from batch3dmot_tpu_torch.train.encoded import (
+        materialize_encoded_dataset, materialize_encoded_datasets_dedup)
+    pairs = [(w, enc) for w in windows]
+    for ds in (materialize_encoded_dataset(pairs), materialize_encoded_datasets_dedup(pairs)):
+        (hist,) = trainer.fit_device(ds, epochs=1, verbose=False)
+        assert np.isfinite(hist["train/loss"])
+    pose = GNNTrainer(make_model("pose", depth=1), GNNConfig(batch_size=2), device="cpu")
+    (hist,) = pose.fit(GraphBatcher(windows, 2), epochs=1, verbose=False, fused_steps=2)
+    (hist,) = pose.fit_device(materialize_graph_dataset(windows), epochs=1, verbose=False,
+                              val_dataset=materialize_graph_dataset(windows))
+    assert np.isfinite(hist["val/loss"])
 
     # knn_conv_mode='active': the module loop with the kNN GATConv
     active = init_params_(make_model("mm", depth=1, knn_conv_mode="active", knn_conv_k=2),
