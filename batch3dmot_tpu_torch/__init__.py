@@ -38,3 +38,12 @@ def prepare_model(model: torch.nn.Module, device=None):
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
     return model.to(device), device
+
+
+def upload(a, device: torch.device) -> torch.Tensor:
+    """The numpy array ``a`` on ``device``: on the GPU through pinned memory
+    without waiting for the card."""
+    t = torch.from_numpy(a)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)

@@ -61,13 +61,34 @@ class GraphConstructionConfig:
 
 @dataclass
 class PredictConfig:
-    """Inference settings (the fields ``infer/predict.py`` reads)."""
+    """Inference settings (the fields ``infer/predict.py`` and
+    ``infer/device_pipeline.py`` read; ``batch3dmot_tpu/config.py:245-292``)."""
 
+    # frames per sliding window at inference
+    batch_size_graph: int = 2
     # windows scored per device batch
     windows_per_batch: int = 8
+    # scenes per grouped dispatch of infer/device_pipeline.py::
+    # predict_scenes_device; a group whose per-scene work fills the card is
+    # scored scene by scene (device_pipeline._GROUP_WORK_CEILING)
+    scenes_per_batch: int = 4
     edge_score_thresholds: Dict[str, float] = field(
         default_factory=lambda: dict(DEFAULT_EDGE_SCORE_THRESHOLDS)
     )
+    # upload dtype of lidar and radar points in predict_scenes_device:
+    # "float16" halves their bytes, the encoders compute in float32
+    # (models/encoders.py::points_input_f32)
+    point_dtype: str = "float16"
+    # default transport dtype of precomputed encodings
+    # (infer/predict.py::SceneEncodedScorer), upcast to float32 on the device
+    embedding_dtype: str = "float16"
+
+    def __post_init__(self) -> None:
+        if self.point_dtype not in ("float16", "float32"):
+            raise ValueError(
+                f"Unknown predict.point_dtype '{self.point_dtype}' "
+                "(use 'float16' or 'float32')"
+            )
 
 
 @dataclass
@@ -91,3 +112,15 @@ class GNNConfig:
     def __post_init__(self) -> None:
         if self.knn_conv_mode not in ("noop", "active"):
             raise ValueError(f"Unknown knn_conv_mode '{self.knn_conv_mode}'")
+
+
+@dataclass
+class Config:
+    """The parts of the JAX package's ``Config`` the port reads, so that
+    entry points such as ``predict_scene_device(model, scene, cfg)`` keep
+    their signature."""
+
+    graph_construction: GraphConstructionConfig = field(
+        default_factory=GraphConstructionConfig
+    )
+    predict: PredictConfig = field(default_factory=PredictConfig)

@@ -9,7 +9,8 @@
 // of the two training kernel pairs of batch3dmot_tpu/ops/pallas_mp_train.py:
 //   B4 _train_fwd_kernel        (:265, E*N <= 32k)
 //   B6 _train_fwd_kernel_tiled  (:523, edge tiles, E*N up to 1M / 2M)
-// One kernel family here covers every bucket up to (1024, 32768). The
+// One kernel family here covers every bucket up to (1024, 32768), and the
+// inference entry windows up to (1024, 40960) (the device pipeline). The
 // tensor-core products live in tc_gemm.cuh, the weight-blob layout and the
 // classifier's fp32 product in mp_common.cuh; the training backward (B5,
 // B7) is fused_mp_train.cu.

@@ -39,7 +39,9 @@
 //     zero fill. An id outside [0, N) on a valid edge reaches no segment.
 //   * The host picks T (at most 32, so that one warp scans a tile's counts)
 //     and CH (ops/segment_kernel.py::segment_plan): small tiles fill the
-//     card at (256, 4096) x8; CH bounds shared memory at (1024, 32768).
+//     card at (256, 4096) x8; CH bounds shared memory whatever E is (a
+//     block walks a longer window chunk by chunk), so nothing caps E:
+//     the device pipeline's windows reach (1024, 40960).
 
 #include <cuda_runtime.h>
 

@@ -8,7 +8,10 @@
     loop and the edge classifier (its plain version on the CPU). A model
     in ``knn_conv_mode='active'`` runs its module loop instead (the kNN
     GATConv and the message passing, whose segment sums go through the
-    segment-sum kernel), as the JAX package does.
+    segment-sum kernel), as the JAX package does. Given precomputed
+    encodings (``encodings=`` / ``encodings_list=``), it uploads the
+    608-d embeddings in ``embedding_dtype`` in place of the raw crops and
+    points and skips the encoders.
   * Scores of an edge seen by several overlapping windows are averaged,
     thresholded per class and greedily rounded to at most one best
     incoming and one best outgoing edge per node.
@@ -26,7 +29,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from batch3dmot_tpu_torch import prepare_model
+from batch3dmot_tpu_torch import prepare_model, upload
 from batch3dmot_tpu_torch.config import (
     DEFAULT_EDGE_SCORE_THRESHOLDS,
     TRACKING_CLASSES,
@@ -49,6 +52,7 @@ from batch3dmot_tpu_torch.ops.fused_mp import (
     fused_scores_full,
 )
 from batch3dmot_tpu_torch.train.data import to_padded
+from batch3dmot_tpu_torch.train.encoded import ENC_DIMS
 
 
 def _pad_detection_count(m: int) -> int:
@@ -87,16 +91,42 @@ def make_scorer(model, device=None) -> Callable:
 
 
 class SceneEncodedScorer:
-    """Encode-once inference for the multimodal GNN."""
+    """Encode-once inference for the multimodal GNN. ``embedding_dtype`` is
+    the transport dtype of precomputed encodings (``PredictConfig``'s,
+    float16, by default; None: float32), upcast to float32 on the device."""
 
-    def __init__(self, model, device=None):
+    def __init__(self, model, device=None, embedding_dtype=PredictConfig.embedding_dtype):
         self.model, self.device = _prepare(model, device)
+        self.embedding_dtype = np.dtype(embedding_dtype or np.float32)
 
     def _encode(self, img, lidar, radar):
         lp = lidar.sum(dim=(1, 2)) != 0
         rp = radar.sum(dim=(1, 2)) != 0
         x_img, pn, rn = self.model.encode_frozen(img, lidar, radar)
         return x_img, pn, rn, lp, rp
+
+    def _enc_from_tables(self, encs, m_pad: int):
+        """The device encodings of PRECOMPUTED per-scene encoding dicts
+        (``train.encoded.ENC_KEYS``), scene g's rows at ``g * m_pad``: the
+        row layout of the raw encode, so the window forwards are unchanged.
+        Embeddings travel in ``embedding_dtype`` and are upcast on the
+        device; rows past a scene's detections are the absent encoding."""
+        parts = []
+        for key in ("x_img", "pn", "rn"):
+            buf = np.zeros((len(encs) * m_pad, ENC_DIMS[key]), self.embedding_dtype)
+            for g, e in enumerate(encs):
+                rows = np.asarray(e[key])
+                if len(rows) > m_pad:
+                    raise ValueError(f"{key}: {len(rows)} rows > m_pad {m_pad}")
+                buf[g * m_pad: g * m_pad + len(rows)] = rows
+            parts.append(upload(buf, self.device).float())
+        for key in ("lidar_present", "radar_present"):
+            buf = np.zeros((len(encs) * m_pad,), bool)
+            for g, e in enumerate(encs):
+                rows = np.asarray(e[key])
+                buf[g * m_pad: g * m_pad + len(rows)] = rows
+            parts.append(upload(buf, self.device))
+        return tuple(parts)
 
     def _forward(self, batch, det_index, enc):
         x_img, pn, rn, lp, rp = (t[det_index] for t in enc)
@@ -111,11 +141,17 @@ class SceneEncodedScorer:
         windows_per_batch: int = 8,
         buckets=DEFAULT_BUCKETS,
         m_pad: Optional[int] = None,
+        encodings_list: Optional[Sequence[Dict[str, np.ndarray]]] = None,
     ):
         """Upload and enqueue the work of a scene group without waiting for
         it: one encode of every detection (scene g's rows at ``g * m_pad``),
+        or the group's precomputed ``encodings_list`` (one dict per scene),
         then one forward per window batch, pooling the scenes' windows per
         bucket. Returns a pending object for :meth:`finalize_scenes`."""
+        if encodings_list is not None and (
+                len(encodings_list) != len(scenes)
+                or any(e is None for e in encodings_list)):
+            raise ValueError("encodings_list must cover every scene in the group")
         if m_pad is None:
             m_pad = max(_pad_detection_count(s.num_detections) for s in scenes)
         for s in scenes:
@@ -149,11 +185,14 @@ class SceneEncodedScorer:
 
         fetches = []
         with torch.inference_mode():
-            enc = self._encode(
-                padg(lambda s: s.img, IMG_SHAPE),
-                padg(lambda s: s.lidar, LIDAR_SHAPE),
-                padg(lambda s: s.radar, RADAR_SHAPE),
-            )
+            if encodings_list is not None:
+                enc = self._enc_from_tables(list(encodings_list), m_pad)
+            else:
+                enc = self._encode(
+                    padg(lambda s: s.img, IMG_SHAPE),
+                    padg(lambda s: s.lidar, LIDAR_SHAPE),
+                    padg(lambda s: s.radar, RADAR_SHAPE),
+                )
             for (mn, me), idxs in by_bucket.items():
                 for lo in range(0, len(idxs), windows_per_batch):
                     chunk = idxs[lo: lo + windows_per_batch]
@@ -194,11 +233,11 @@ class SceneEncodedScorer:
         windows_per_batch: int = 8,
         buckets=DEFAULT_BUCKETS,
         m_pad: Optional[int] = None,
+        encodings_list: Optional[Sequence[Dict[str, np.ndarray]]] = None,
     ) -> List[List[np.ndarray]]:
         """:meth:`dispatch_scenes` + :meth:`finalize_scenes` in one call."""
-        return self.finalize_scenes(
-            self.dispatch_scenes(scenes, windows_list, windows_per_batch, buckets, m_pad)
-        )
+        return self.finalize_scenes(self.dispatch_scenes(
+            scenes, windows_list, windows_per_batch, buckets, m_pad, encodings_list))
 
     def score_scene(
         self,
@@ -207,9 +246,12 @@ class SceneEncodedScorer:
         windows_per_batch: int = 8,
         buckets=DEFAULT_BUCKETS,
         m_pad: Optional[int] = None,
+        encodings: Optional[Dict[str, np.ndarray]] = None,
     ) -> List[np.ndarray]:
-        """Per-window scores of one scene."""
-        return self.score_scenes([scene], [windows], windows_per_batch, buckets, m_pad)[0]
+        """Per-window scores of one scene; ``encodings`` (the scene's
+        ``train.encoded.ENC_KEYS`` dict) replaces the raw-modality encode."""
+        return self.score_scenes([scene], [windows], windows_per_batch, buckets, m_pad,
+                                 None if encodings is None else [encodings])[0]
 
 
 def score_windows(
@@ -255,6 +297,41 @@ def average_edge_scores_raw(
     return (uniq >> 32), (uniq & 0xFFFFFFFF), means
 
 
+def average_edge_scores_arrays(
+    src: np.ndarray, dst: np.ndarray, scores: np.ndarray
+) -> Dict[Tuple[int, int], float]:
+    """Dict view of :func:`average_edge_scores_raw`: (src, dst) -> mean."""
+    ua, ub, means = average_edge_scores_raw(src, dst, scores)
+    return {
+        (int(a), int(b)): float(v)
+        for a, b, v in zip(ua.tolist(), ub.tolist(), means.tolist())
+    }
+
+
+def _window_edges(windows, scores):
+    """Scene-level (src, dst, score) of every scored window edge, or None."""
+    srcs, dsts, vals = [], [], []
+    for w, s in zip(windows, scores):
+        if len(s) == 0:
+            continue
+        srcs.append(w.det_index[w.edge_src])
+        dsts.append(w.det_index[w.edge_dst])
+        vals.append(np.asarray(s))
+    if not srcs:
+        return None
+    return np.concatenate(srcs), np.concatenate(dsts), np.concatenate(vals)
+
+
+def average_scene_edges(
+    windows: Sequence[WindowGraphArrays],
+    window_scores: Sequence[np.ndarray],
+) -> Dict[Tuple[int, int], float]:
+    """Mean per-edge score across overlapping windows, keyed by scene-level
+    (src_det_index, dst_det_index)."""
+    edges = _window_edges(windows, window_scores)
+    return {} if edges is None else average_edge_scores_arrays(*edges)
+
+
 def threshold_mask(
     src: np.ndarray,
     means: np.ndarray,
@@ -274,7 +351,9 @@ def greedy_round_arrays(
     src: np.ndarray, dst: np.ndarray, scores: np.ndarray
 ) -> np.ndarray:
     """Mask keeping, per node, its best-scoring outgoing and incoming edge;
-    ties go to the first edge in input order."""
+    ties go to the first edge in input order. Two nodes may keep edges into
+    the same successor: the clustering stage resolves such conflicts by
+    score order."""
     k = len(scores)
     keep = np.zeros(k, bool)
     if k == 0:
@@ -287,29 +366,47 @@ def greedy_round_arrays(
     return keep
 
 
-def aggregate_scene_edges(
+def _dict_arrays(edges: Dict[Tuple[int, int], float]):
+    """(src, dst, value) arrays of an edge dict, in its order, and its
+    keys."""
+    keys = list(edges)
+    return (np.array([a for a, _ in keys], np.int64), np.array([b for _, b in keys], np.int64),
+            np.array([edges[e] for e in keys], np.float64), keys)
+
+
+def threshold_edges(
+    avg_scores: Dict[Tuple[int, int], float],
     scene: SceneDetections,
-    windows: Sequence[WindowGraphArrays],
-    scores: Sequence[np.ndarray],
+    thresholds: Optional[Dict[str, float]] = None,
+) -> Dict[Tuple[int, int], float]:
+    """Dict view of :func:`threshold_mask`: the edges whose mean score
+    clears the threshold of the source node's class."""
+    src, _, vals, keys = _dict_arrays(avg_scores)
+    keep = threshold_mask(src, vals, scene.class_id, thresholds)
+    return {e: avg_scores[e] for e, ok in zip(keys, keep.tolist()) if ok}
+
+
+def greedy_round(
+    edges: Dict[Tuple[int, int], float],
+) -> List[Tuple[Tuple[int, int], float]]:
+    """Dict view of :func:`greedy_round_arrays`: the kept edges in the
+    dict's order (the first edge seen wins a tie)."""
+    src, dst, vals, keys = _dict_arrays(edges)
+    return [(keys[i], edges[keys[i]]) for i in np.flatnonzero(greedy_round_arrays(src, dst, vals))]
+
+
+def round_scene_edges(
+    usrc: np.ndarray,
+    udst: np.ndarray,
+    means: np.ndarray,
+    class_id: np.ndarray,
     thresholds: Optional[Dict[str, float]] = None,
 ):
-    """Cross-window averaging -> per-class thresholding -> greedy rounding
-    for one scene's window scores. Returns (pred_edges, avg_scores):
-    pred_edges is [((det_j, det_i), score), ...] in scene detection
-    indices, avg_scores maps every scored pair to its mean."""
-    srcs, dsts, vals = [], [], []
-    for w, s in zip(windows, scores):
-        if len(s) == 0:
-            continue
-        srcs.append(w.det_index[w.edge_src])
-        dsts.append(w.det_index[w.edge_dst])
-        vals.append(np.asarray(s))
-    if not srcs:
-        return [], {}
-    usrc, udst, means = average_edge_scores_raw(
-        np.concatenate(srcs), np.concatenate(dsts), np.concatenate(vals)
-    )
-    keep = threshold_mask(usrc, means, scene.class_id, thresholds)
+    """Per-class thresholds and greedy rounding of a scene's unique edges
+    and their means, given in (src, dst) order. Returns (pred_edges,
+    avg_scores): pred_edges is [((det_j, det_i), score), ...] in scene
+    detection indices, avg_scores maps every pair to its mean."""
+    keep = threshold_mask(usrc, means, class_id, thresholds)
     ks, kd, kv = usrc[keep], udst[keep], means[keep]
     sel = greedy_round_arrays(ks, kd, kv)
     pred_edges = [
@@ -323,6 +420,20 @@ def aggregate_scene_edges(
     return pred_edges, avg
 
 
+def aggregate_scene_edges(
+    scene: SceneDetections,
+    windows: Sequence[WindowGraphArrays],
+    scores: Sequence[np.ndarray],
+    thresholds: Optional[Dict[str, float]] = None,
+):
+    """Cross-window averaging -> :func:`round_scene_edges` for one scene's
+    window scores. Returns (pred_edges, avg_scores)."""
+    edges = _window_edges(windows, scores)
+    if edges is None:
+        return [], {}
+    return round_scene_edges(*average_edge_scores_raw(*edges), scene.class_id, thresholds)
+
+
 def predict_scene(
     scorer,
     scene: SceneDetections,
@@ -330,16 +441,49 @@ def predict_scene(
     cfg: Optional[PredictConfig] = None,
     buckets=DEFAULT_BUCKETS,
     m_pad: Optional[int] = None,
+    encodings: Optional[Dict[str, np.ndarray]] = None,
 ):
-    """Per-scene edge pipeline: batched scoring (a SceneEncodedScorer or a
+    """Per-scene edge pipeline: batched scoring (a SceneEncodedScorer, from
+    the raw modalities or the scene's precomputed ``encodings``, or a
     :func:`make_scorer` scorer) -> averaging -> thresholds -> greedy
     rounding. Returns (pred_edges, avg_scores)."""
     cfg = cfg or PredictConfig()
     if isinstance(scorer, SceneEncodedScorer):
-        scores = scorer.score_scene(scene, windows, cfg.windows_per_batch, buckets, m_pad)
+        scores = scorer.score_scene(scene, windows, cfg.windows_per_batch, buckets, m_pad,
+                                    encodings)
     else:
+        if encodings is not None:
+            raise ValueError("encodings need a SceneEncodedScorer")
         scores = score_windows(scorer, windows, cfg.windows_per_batch, buckets)
     return aggregate_scene_edges(scene, windows, scores, cfg.edge_score_thresholds)
+
+
+def dispatch_predict_scenes(
+    scorer: SceneEncodedScorer,
+    items: Sequence[Tuple[SceneDetections, Sequence[WindowGraphArrays]]],
+    cfg: Optional[PredictConfig] = None,
+    buckets=DEFAULT_BUCKETS,
+    m_pad: Optional[int] = None,
+    encodings_list: Optional[Sequence[Dict[str, np.ndarray]]] = None,
+):
+    """The upload-and-enqueue half of :func:`predict_scenes`
+    (``SceneEncodedScorer.dispatch_scenes``): a caller can dispatch the
+    next group while this one's fetch and aggregation run."""
+    cfg = cfg or PredictConfig()
+    pending = scorer.dispatch_scenes(
+        [s for s, _ in items], [ws for _, ws in items],
+        cfg.windows_per_batch, buckets, m_pad, encodings_list,
+    )
+    return items, cfg.edge_score_thresholds, pending
+
+
+def finalize_predict_scenes(scorer: SceneEncodedScorer, staged) -> List[Tuple[list, dict]]:
+    """Fetch and aggregate a :func:`dispatch_predict_scenes` result."""
+    items, thresholds, pending = staged
+    return [
+        aggregate_scene_edges(scene, windows, scores, thresholds)
+        for (scene, windows), scores in zip(items, scorer.finalize_scenes(pending))
+    ]
 
 
 def predict_scenes(
@@ -348,16 +492,11 @@ def predict_scenes(
     cfg: Optional[PredictConfig] = None,
     buckets=DEFAULT_BUCKETS,
     m_pad: Optional[int] = None,
+    encodings_list: Optional[Sequence[Dict[str, np.ndarray]]] = None,
 ) -> List[Tuple[list, dict]]:
     """Grouped :func:`predict_scene` over a scene batch: one encode of the
-    group, pooled window batches, then per-scene aggregation. Returns
-    ``[(pred_edges, avg_scores), ...]`` in input order."""
-    cfg = cfg or PredictConfig()
-    all_scores = scorer.score_scenes(
-        [s for s, _ in items], [ws for _, ws in items],
-        cfg.windows_per_batch, buckets, m_pad,
-    )
-    return [
-        aggregate_scene_edges(scene, windows, scores, cfg.edge_score_thresholds)
-        for (scene, windows), scores in zip(items, all_scores)
-    ]
+    group (or its precomputed ``encodings_list``), pooled window batches,
+    then per-scene aggregation. Returns ``[(pred_edges, avg_scores), ...]``
+    in input order."""
+    return finalize_predict_scenes(scorer, dispatch_predict_scenes(
+        scorer, items, cfg, buckets, m_pad, encodings_list))

@@ -126,11 +126,20 @@ def kernel_names() -> set:
     return {n for p in CSRC.glob("*.cu*") for n in pattern.findall(p.read_text())}
 
 
+# The profiler now and then drops the records of a trace's first
+# milliseconds (seen on an H100): ``traced_launches`` starts the run this
+# long into the trace, between two marker kernels it requires.
+TRACE_LEAD_S = 0.05
+MARK_CYCLES = 200_000
+
+
 def traced_launches(run) -> Dict[str, int]:
     """Launches of each of the package's kernels during ``run()`` on the
     GPU, as torch.profiler traces them: CUDA-graph replays included, which
     the Python wrappers' launch counters cannot see. A first profiled step,
-    discarded, warms the tracer (a cold one may miss the first records)."""
+    discarded, warms the tracer. ``run()`` starts ``TRACE_LEAD_S`` into the
+    traced step, after a marker kernel, and a second marker follows it; a
+    trace without both markers has lost records and raises."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
@@ -145,14 +154,24 @@ def traced_launches(run) -> Dict[str, int]:
             torch.ones(1, device="cuda").add_(1)
             torch.cuda.synchronize()
             prof.step()
+            time.sleep(TRACE_LEAD_S)
+            torch.cuda._sleep(MARK_CYCLES)
             run()
+            torch.cuda.synchronize()
+            torch.cuda._sleep(MARK_CYCLES)
             torch.cuda.synchronize()
             prof.step()
     out: Dict[str, int] = {}
+    marks = 0
     for ev in events:
         if ev.device_type != DeviceType.CUDA:
             continue
+        if re.search(r"(?<!\w)spin_kernel(?!\w)", ev.key):
+            marks += ev.count
         for n in names:
             if re.search(rf"(?<!\w){n}[(<]", ev.key):
                 out[n] = out.get(n, 0) + ev.count
+    if marks != 2:
+        raise RuntimeError(f"the profiler lost records of the traced run: {marks} of its "
+                           "2 marker kernels traced")
     return out

@@ -36,12 +36,15 @@ from batch3dmot_tpu_torch.ops import cuda_build
 
 SMEM_LIMIT = 232_448  # shared memory a block can use on Hopper
 H100_SMS = 132
-# csrc/fused_mp.cu: the largest shape the kernel family covers (the largest
-# bucket); the edge kernel's rows, weight slice depth (K), ring slots and
+# csrc/fused_mp.cu: the largest shape the inference kernel covers: the
+# largest bucket's 1024 nodes, and the device pipeline's windows of
+# (max_nodes, max_nodes * k) up to kNN 40 (shared memory does not grow with
+# E, and int32 edge ids hold B * E); the training pair keeps the largest
+# bucket (TRAIN_COVER, ops/fused_mp_train.py); the edge kernel's rows, weight slice depth (K), ring slots and
 # most slices per layer; the node kernels' rows, slice depth, ring slots
 # and most slices per block; the room for a ring's mbarriers; the
 # activations' row padding; the classifier's rows and fp32 weight stages
-COVER = (1024, 32768)
+COVER = (1024, 40960)
 _EDGE_R, _EDGE_KC, _EDGE_STAGES, _MAX_SLICES = 64, 16, 3, 128
 _NODE_T, _NODE_KC, _NODE_STAGES, _MAX_NODE_SLICES = 16, 16, 3, 128
 _BAR, _PAD, _CLS_ROWS, _CLS_SW = 16, 4, 32, 2 * 16 * 256

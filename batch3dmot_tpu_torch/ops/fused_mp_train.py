@@ -43,6 +43,9 @@ from batch3dmot_tpu_torch.ops.fused_mp import (
 # backward multiplies by, in ``TParams`` order (csrc/fused_mp_train.cu):
 # P1, F1, Pue, Fue, W2, W1, Wea, C2w, C1w, C0, Wp, L2w, L1w, L0.
 _TRANSPOSED = (12, 8, 10, 6, 4, 2, 0, 18, 16, 14, 20, 25, 23, 21)
+# The largest shape the training pair covers: the largest bucket of
+# graph.DEFAULT_BUCKETS (the inference kernel's COVER reaches further)
+TRAIN_COVER = (1024, 32768)
 
 
 def _stream(t: torch.Tensor) -> ctypes.c_void_p:
@@ -64,6 +67,9 @@ def train_forward_cuda(x0, e0, att, src, dst, edge_mask, flat, meta, depth,
     """Launch the stashing forward on the current stream. Returns the
     scores [B, E], the stashes x_t [B, depth, N, nd], e_t [B, depth + 1, E,
     ed] and agg_t [B, depth, N, 2M], and the staged kernel inputs."""
+    if x0.shape[1] > TRAIN_COVER[0] or e0.shape[1] > TRAIN_COVER[1]:
+        raise ValueError(f"fused MP training: windows of {tuple(src.shape)} edges and "
+                         f"{x0.shape[1]} nodes lie outside its cover (up to {TRAIN_COVER})")
     k = kernel_inputs(x0, e0, att, src, dst, edge_mask, flat, meta, depth, logits)
     b, n, nd = x0.shape
     e, ed = e0.shape[1], e0.shape[2]

@@ -50,7 +50,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from batch3dmot_tpu_torch import prepare_model
+from batch3dmot_tpu_torch import prepare_model, upload
 from batch3dmot_tpu_torch.config import TRACKING_CLASSES, GNNConfig
 from batch3dmot_tpu_torch.graph import PaddedGraph
 from batch3dmot_tpu_torch.models.gnn import PoseGNN
@@ -351,10 +351,7 @@ class GNNTrainer:
 
     def _upload_rows(self, idx: np.ndarray) -> torch.Tensor:
         """Index rows on the device: one upload."""
-        idx = torch.from_numpy(idx)
-        if self.device.type == "cuda":
-            return idx.pin_memory().to(self.device, non_blocking=True)
-        return idx
+        return upload(idx, self.device)
 
     def _run_steps(self, res, idx, train: bool) -> np.ndarray:
         """The steps of the index rows ``idx`` [n_steps, B] over the source

@@ -8,8 +8,9 @@ Phases, each fatal on failure:
      (one ``nvcc`` per source, started together);
   2. kernels: the inference kernel against its plain PyTorch version on the
      card, on inputs made from a numpy seed, at the shapes the main path
-     gives it and beyond (up to the largest bucket), compared on valid
-     edges, and bit-identical across two runs; then the training pair (the stashing forward and the
+     gives it and beyond (up to the largest bucket, and the device
+     pipeline's windows up to (1024, 40960)), compared on valid edges, and
+     bit-identical across two runs; then the training pair (the stashing forward and the
      hand-written backward) against autograd of the plain version: scores
      and stashes, and dx0, de0, datt and every weight gradient under a
      random cotangent that is non-zero on every edge, masked ones too; the
@@ -17,7 +18,8 @@ Phases, each fatal on failure:
   2c. the segment-sum kernel against its plain version at the shapes of the
      knn_conv_mode='active' path (message passing, GAT messages and softmax
      denominators), the largest bucket (D 128 and D 1), int64 ids (as the
-     kNN graph gives them), an all-padding window and empty segments:
+     kNN graph gives them), the active device pipeline's windows up to
+     (1024, 40960), an all-padding window and empty segments:
      forward, bit-identical across two runs, and its backward against
      autograd of the plain version;
   3. inference path: the ``bench.py`` workload (4 synthetic scenes, 16
@@ -63,6 +65,20 @@ Phases, each fatal on failure:
      eager steps; for each graphed path an epoch of replays alone, traced
      by the profiler, runs each of the port's kernels exactly steps times
      as often as one eager step does, and no wrapper launches anything;
+  3f. the device inference pipeline on the same 4 scenes (window 5, kNN
+     40, the phase-3 model): every window built on the card against the
+     host builder (edge sets equal but at kNN near-ties, counted); averaged
+     scores per scene against ``SceneEncodedScorer`` + ``average_scene_edges``
+     on the same graphs and against the pipeline with the kernel's plain
+     version; grouped against per-scene; one fused launch per scene
+     dispatch and one per group; no host sync inside a dispatch;
+     ``predict_scene_device`` -> tracks -> AMOTA (its predicted edges
+     against phase 3's, every difference at a near-tie of the two paths'
+     averages; ``predict_scenes_device`` equal to it); float16 point
+     uploads (``point_dtype``) against float32 ones; the active model's
+     pipeline (18 segment sums per forward) against the plain segment sum
+     with its kNN graphs replayed; scoring from 3b's precomputed encodings
+     (float32 and float16 transport) against the raw encode;
   4. timing: each kernel and its plain version with CUDA events on real
      main-path batches (inference, and the training pair at (256, 4096) x8,
      the device time per call by sub-kernel of the inference forward, the
@@ -72,7 +88,12 @@ Phases, each fatal on failure:
      forms (``fit``, ``fit_device`` dense and dedup, ``fused_steps=4``):
      wall ms, edges/s, device busy share and Adam's device ms; the segment-sum kernel
      beside its plain version and ``index_add_`` with its device time per
-     call, the active paths' edges/s, profile and train step.
+     call, the active paths' edges/s, profile and train step; (4d) the
+     device pipeline's wall ms, valid edges/s and device busy share, per
+     scene and grouped, beside ``score_scenes``; singles against a group in
+     turns at window 5 (above the grouping ceiling) and window 3 (under
+     it); and the kernel at its window grids with its bound over valid
+     edges and over every slot.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Exits non-zero, without the last
@@ -163,16 +184,18 @@ def random_inputs(rng, windows, n, e, nd, ed, with_att, empty=0):
                  for a in (x0, e0, att, src, dst, mask))
 
 
-def mp_work(inputs, widths, depth):
+def mp_work(inputs, widths, depth, all_slots=False):
     """(FLOP, bytes) that one fused MP forward needs on these inputs: the
     per-node-projected formulation over the valid edges and the nodes they
-    touch; each input read once and the scores written once."""
+    touch (``all_slots``: over every edge and node slot, padding included,
+    as the kernel computes them); each input read once and the scores
+    written once."""
     x0, e0, att, src, dst, mask = inputs
     b, n, nd = x0.shape
     ed = e0.shape[-1]
     w = widths
-    n_edges = int(mask.sum())
-    touched = touched_nodes(src, dst, mask)
+    n_edges = b * e0.shape[1] if all_slots else int(mask.sum())
+    touched = b * n if all_slots else touched_nodes(src, dst, mask)
     ea = ed * (2 if att is not None else 1)
     pw, qw = 2 * w["H1"] + 4 * w["M1"], 2 * w["H1"] + 2 * w["M1"]
     edge_layer = 2 * (ea * w["H1"] + w["H1"] * w["H2"] + w["H2"] * ed
@@ -367,12 +390,16 @@ def plain_training():
 
 def profile_device(run):
     """Wall ms, device-busy ms and the device rows (ms, name, count) of one
-    call of ``run`` under torch.profiler."""
+    call of ``run`` under torch.profiler, started ``TRACE_LEAD_S`` into the
+    trace (whose first milliseconds' records the profiler can drop)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from batch3dmot_tpu_torch.ops.cuda_build import TRACE_LEAD_S
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(TRACE_LEAD_S)
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -630,6 +657,118 @@ def flip_summary(flips):
             + f", d_k/|x|^2 up to {max(f[5] for f in flips):.1e}")
 
 
+def knn_gaps(scene, start, window_len, k):
+    """Per node of a window, the relative gap between its k-th and (k+1)-th
+    candidate distances in the host builder's float64 arithmetic (inf where
+    the node has at most k candidates): a float32 build may take either side
+    of a gap within its rounding."""
+    from batch3dmot_tpu_torch import geometry as geo
+    from batch3dmot_tpu_torch.graphs.build import _normalized
+
+    idx = scene.window_indices(start, window_len)
+    t, c = scene.frame_idx[idx], scene.class_id[idx]
+    xy, yaw, vel = scene.center_g[idx], scene.yaw_g[idx], scene.vel_g[idx]
+    cand = (t[None, :] < t[:, None]) & (c[None, :] == c[:, None])
+    comb = (0.5 * _normalized(geo.center_distance_xy(xy[:, None], xy[None]), cand)
+            + 0.25 * _normalized(np.abs(geo.angle_diff(yaw[:, None], yaw[None])), cand)
+            + 0.25 * _normalized(np.abs(geo.velocity_l2(vel[:, None], vel[None])), cand))
+    d = np.sort(np.where(cand, comb, np.inf), axis=1)
+    if d.shape[1] <= k:
+        return np.full(len(idx), np.inf)
+    with np.errstate(invalid="ignore"):
+        gap = (d[:, k] - d[:, k - 1]) / np.maximum(d[:, k - 1], 1e-30)
+    return np.where(np.isfinite(d[:, k]), gap, np.inf)
+
+
+def compare_builds(scene, host, dev, window_len, k):
+    """Holds device-built windows to the host builder's, window by window:
+    the same nodes and pose features; per destination node the same
+    labelled sources with the same attributes, except at a node whose k-th
+    and (k+1)-th candidates lie within NEAR_TIE (f32 against f64). Returns
+    (windows with such a flip, max |pose or attribute difference|)."""
+    flips, worst = 0, 0.0
+    assert len(host) == len(dev), (len(host), len(dev))
+    for start, (a, b) in enumerate(zip(host, dev)):
+        np.testing.assert_array_equal(a.det_index, b.det_index)
+        np.testing.assert_allclose(b.pose, a.pose, rtol=1e-5, atol=1e-5)
+        worst = max(worst, float(np.abs(a.pose - b.pose).max(initial=0.0)))
+        rows = {}
+        for w, side in ((a, 0), (b, 1)):
+            for s_, d_, lab, attr in zip(w.edge_src, w.edge_dst, w.edge_label, w.edge_attr):
+                rows.setdefault(int(d_), ({}, {}))[side][int(s_)] = (float(lab), attr)
+        gaps = None
+        flipped = False
+        for d_, (ha, hb) in rows.items():
+            if ha.keys() != hb.keys():
+                if gaps is None:
+                    gaps = knn_gaps(scene, start, window_len, k)
+                assert gaps[d_] <= NEAR_TIE, (start, d_, gaps[d_])
+                flipped = True
+            for s_ in ha.keys() & hb.keys():
+                assert ha[s_][0] == hb[s_][0], (start, d_, s_)
+                np.testing.assert_allclose(hb[s_][1], ha[s_][1], rtol=1e-5, atol=1e-5)
+                worst = max(worst, float(np.abs(hb[s_][1] - ha[s_][1]).max()))
+        flips += flipped
+    return flips, worst
+
+
+@contextlib.contextmanager
+def grouping_forced():
+    """The device pipeline groups scenes whatever their work (its density
+    routing sends scenes that fill the card one by one)."""
+    from batch3dmot_tpu_torch.infer import device_pipeline
+
+    ceiling = device_pipeline._GROUP_WORK_CEILING
+    device_pipeline._GROUP_WORK_CEILING = float("inf")
+    try:
+        yield
+    finally:
+        device_pipeline._GROUP_WORK_CEILING = ceiling
+
+
+def rounding_flips(preds_a, preds_b, scenes):
+    """Edges predicted by only one of two roundings, per scene, of nearly
+    equal averages, and how many of them the averages' differences cannot
+    explain. An edge kept in one and dropped in the other won its node's
+    out- or in-edge in one rounding only, or cleared its class threshold
+    in one only; either needs its mean within twice the averages' largest
+    difference of a rival's sharing its source or destination, or within
+    that difference of the threshold."""
+    from batch3dmot_tpu_torch.config import (
+        DEFAULT_EDGE_SCORE_THRESHOLDS,
+        TRACKING_CLASS_NAMES,
+    )
+
+    flips = unexplained = 0
+    for (pa, aa), (pb, ab), scene in zip(preds_a, preds_b, scenes):
+        assert aa.keys() == ab.keys()
+        noise = max(abs(aa[e] - ab[e]) for e in aa)
+        by_node = {}
+        for e in aa:
+            by_node.setdefault(("out", e[0]), []).append(e)
+            by_node.setdefault(("in", e[1]), []).append(e)
+        for e in {e for e, _ in pa} ^ {e for e, _ in pb}:
+            flips += 1
+            thr = DEFAULT_EDGE_SCORE_THRESHOLDS[TRACKING_CLASS_NAMES[int(scene.class_id[e[0]])]]
+            rivals = by_node[("out", e[0])] + by_node[("in", e[1])]
+            explained = abs(aa[e] - thr) <= noise or any(
+                r != e and abs(aa[r] - aa[e]) <= 2 * noise for r in rivals)
+            unexplained += not explained
+    return flips, unexplained
+
+
+def max_avg_diff(got, want, rtol=RTOL, atol=ATOL):
+    """Holds two {(src, dst): mean} dicts to the same keys and each mean
+    within rtol |want| + atol; returns the largest difference."""
+    assert got.keys() == want.keys() and want, (len(got), len(want))
+    worst = 0.0
+    for key, v in want.items():
+        diff = abs(got[key] - v)
+        assert diff <= rtol * abs(v) + atol, (key, got[key], v)
+        worst = max(worst, diff)
+    return worst
+
+
 def main() -> int:
     import torch
 
@@ -637,10 +776,23 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
 
-    from batch3dmot_tpu_torch.config import GNNConfig
+    from batch3dmot_tpu_torch.config import (
+        Config,
+        GNNConfig,
+        GraphConstructionConfig,
+        PredictConfig,
+    )
     from batch3dmot_tpu_torch.graph import pick_bucket
+    from batch3dmot_tpu_torch.graphs import build_scene_graphs
+    from batch3dmot_tpu_torch.graphs.build_device import build_scene_graphs_device
+    from batch3dmot_tpu_torch.infer.device_pipeline import (
+        DeviceScenePipeline,
+        predict_scene_device,
+        predict_scenes_device,
+    )
     from batch3dmot_tpu_torch.infer.predict import (
         SceneEncodedScorer,
+        average_scene_edges,
         make_scorer,
         predict_scenes,
         score_windows,
@@ -705,6 +857,8 @@ def main() -> int:
         ("mm", (64, 512), 8, 0),
         ("mm", (256, 4096), 8, 0),
         ("mm", (1024, 32768), 1, 0),
+        ("mm", (256, 10240), 16, 0),  # a scene of the device pipeline (3f)
+        ("mm", (1024, 40960), 1, 0),  # its largest: 1024 nodes at kNN 40
         ("cl_gnn_trad", (64, 512), 8, 0),
         ("pose", (128, 1024), 8, 0),
         ("mm", (64, 512), 2, 1),  # the second window is all padding
@@ -800,8 +954,9 @@ def main() -> int:
     # ---- 2c. the segment-sum kernel against its plain version ------------
     # the active path's shapes: mm message passing (D 128), its GAT messages
     # (D 96) and softmax denominators (D 1) over N * k = 5120 kNN edges, pose
-    # message passing and GAT (D 64, 48), the largest bucket, and windows
-    # with no valid edge next to real ones
+    # message passing and GAT (D 64, 48), the largest bucket, the active
+    # device pipeline's group (64 windows of (256, 10240)) and its largest
+    # window (1024, 40960), and windows with no valid edge next to real ones
     seg_cases = [
         ((8,), 256, 4096, 128, False, False),
         ((8,), 256, 5120, 96, False, True),
@@ -811,6 +966,9 @@ def main() -> int:
         ((8,), 128, 2560, 48, False, True),
         ((1,), 1024, 32768, 128, False, False),
         ((1,), 1024, 32768, 1, False, False),
+        ((64,), 256, 10240, 128, False, False),  # the active device pipeline's group
+        ((64,), 256, 5120, 96, False, True),  # its GAT messages over kNN 20
+        ((1,), 1024, 40960, 128, False, False),  # the pipeline's largest window
         ((2,), 64, 512, 128, True, False),
     ]
     seg_err = 0.0
@@ -1353,6 +1511,169 @@ def main() -> int:
         f"epoch of {len(act_batches)} replays, no wrapper launch: {rep_act}")
     del t_act, t_ref
 
+    # ---- 3f. the device inference pipeline ---------------------------------
+    # the same 4 scenes through DeviceScenePipeline (window 5, kNN 40) with
+    # the main path's model: every window built on the card (held to the
+    # host builder), every detection encoded once, the windows scored by the
+    # fused kernel in one launch per scene, or per group of scenes, and the
+    # edge scores averaged across windows on the card; then the active
+    # model's pipeline (18 segment sums per forward) and scoring from the
+    # precomputed encodings of 3b
+    gc40 = GraphConstructionConfig(top_knn_nodes=40)
+    pipe = DeviceScenePipeline(model, 5, 40)
+    quanta = [pipe._quanta(sc) for sc in scenes]
+    dev_windows, build_flips, build_err, n_built = [], 0, 0.0, 0
+    for sc, q in zip(scenes, quanta):
+        dev = build_scene_graphs_device(sc, 5, gc40, max_nodes=q[2])
+        flips_b, err_b = compare_builds(sc, list(build_scene_graphs(sc, 5, gc40)), dev, 5, 40)
+        build_flips += flips_b
+        build_err = max(build_err, err_b)
+        n_built += len(dev)
+        dev_windows.append([w for w in dev if w.num_edges > 0])
+    pipe_edges = sum(w.num_edges for ws in dev_windows for w in ws)
+    log(f"device pipeline build: {n_built} windows built on the card against the host "
+        f"builder: same nodes, pose features and labelled edges (attributes within 1e-5, max "
+        f"|difference| {build_err:.2e}); windows with a kNN flip at a near-tie: {build_flips}; "
+        f"{pipe_edges} valid edges; quanta (m_pad, windows, max_nodes) per scene {quanta}")
+
+    with grouping_forced():  # warm-up: lazy uploads and libraries
+        pipe.score_scenes(scenes)
+    for sc in scenes:
+        pipe.score_scene(sc)
+    torch.cuda.synchronize()
+    pending = []
+    counters(reset=True)
+    syncs_single = count_syncs(lambda: pending.extend(pipe.dispatch_scene(sc) for sc in scenes))
+    single_launches = counters()["fused_mp"]
+    singles = [pipe.finalize_scene(p) for p in pending]
+    # the group's work W * N * E decides the route: these scenes' windows
+    # fill the card (above _GROUP_WORK_CEILING), so score_scenes sends them
+    # one by one; with the ceiling lifted they go as one batch of S * W
+    routed = pipe.dispatch_scenes(scenes)
+    routed_scores = pipe.finalize_scenes(routed)
+    group_pending = []
+    counters(reset=True)
+    with grouping_forced():
+        syncs_group = count_syncs(lambda: group_pending.append(pipe.dispatch_scenes(scenes)))
+    group_launches = counters()["fused_mp"]
+    grouped = pipe.finalize_scenes(group_pending[0])
+    routed_diff = max(max_avg_diff(r, a) for r, a in zip(routed_scores, singles))
+    log(f"device pipeline launches: fused_mp {single_launches} over {len(scenes)} scene "
+        f"dispatches, {group_launches} for the forced group of {len(scenes)}; score_scenes' "
+        f"own route at this density: {routed[0]}; host syncs inside dispatch: "
+        f"{syncs_single} per-scene, {syncs_group} grouped; max|routed - singles| "
+        f"{routed_diff:.3e}")
+    assert single_launches == len(scenes) and group_launches == 1, (single_launches,
+                                                                    group_launches)
+    assert group_pending[0][0] == "group"
+    assert syncs_single == 0 and syncs_group == 0, (syncs_single, syncs_group)
+    for avg in singles:
+        vals = np.array(list(avg.values()))
+        assert vals.size and np.isfinite(vals).all() and ((vals >= 0) & (vals <= 1)).all()
+    host_scores = scorer.score_scenes(scenes, dev_windows)
+    pipe_host_err = max(max_avg_diff(a, average_scene_edges(ws, ss))
+                        for a, ws, ss in zip(singles, dev_windows, host_scores))
+    assert sum(len(a) for a in singles) == len(
+        {(i, k) for i, ws in enumerate(dev_windows) for w in ws
+         for k in zip(w.det_index[w.edge_src].tolist(), w.det_index[w.edge_dst].tolist())})
+    fused_mp.fused_mp_scores_cuda = fused_mp_scores_plain
+    try:
+        pipe_plain = [pipe.score_scene(sc) for sc in scenes]
+    finally:
+        fused_mp.fused_mp_scores_cuda = fused_mp_scores_cuda
+    pipe_plain_err = max(max_avg_diff(a, b) for a, b in zip(singles, pipe_plain))
+    group_diff = max(max_avg_diff(g, a) for g, a in zip(grouped, singles))
+    group_shape = (len(scenes) * -(-quanta[0][1] // 8) * 8, max(q[2] for q in quanta))
+    max_err = max(max_err, pipe_plain_err)
+    log(f"device pipeline scores: {sum(len(a) for a in singles)} averaged edges; max|pipeline - "
+        f"host path (SceneEncodedScorer + average_scene_edges on the same graphs)| "
+        f"{pipe_host_err:.3e}; max|kernel - plain| {pipe_plain_err:.3e}; max|grouped - "
+        f"singles| {group_diff:.3e} (group: {group_shape[0]} windows of {group_shape[1]} "
+        "nodes in one launch)")
+
+    # float32 point uploads, as phase 3's predict_scenes had them; the
+    # default float16 uploads are held to float32 ones below
+    cfg_dev = Config(graph_construction=gc40,
+                     predict=PredictConfig(batch_size_graph=5, point_dtype="float32"))
+    preds_dev = [predict_scene_device(model, sc, cfg_dev) for sc in scenes]
+    assert predict_scenes_device(model, scenes, cfg_dev) == preds_dev
+    _, boxes_dev, n_tracks_dev, res_dev = submission_and_amota(items, preds_dev)
+    assert boxes_dev and np.isfinite(res_dev.amota)
+    # both paths round the same way (per-class thresholds, then per node
+    # the best edge, the first in (src, dst) order at a tie); their
+    # averages differ in the last bits, so an edge may flip only where its
+    # mean lies that close to a rival's or to its class threshold
+    pred_diff, unexplained = rounding_flips(preds_dev, preds, scenes)
+    assert unexplained == 0, unexplained
+    log(f"device pipeline tracks: predict_scene_device -> {sum(len(p) for p, _ in preds_dev)} "
+        f"predicted edges ({pred_diff} in only one of it and phase 3's predict_scenes, each "
+        f"at a near-tie of the two paths' averages), equal to predict_scenes_device's (one "
+        f"group of {len(scenes)}); {n_tracks_dev} tracks, {len(boxes_dev)} boxes; AMOTA "
+        f"{res_dev.amota:.4f} (phase 3's score_scenes: {res.amota:.4f}; untrained random "
+        "weights)")
+
+    # float16 points (predict.point_dtype): float32 points cast for the
+    # upload give the scores of float16 points, upcast by the encoders on
+    # the card: the same edges, within 5e-3 of float32 uploads
+    pipe16 = DeviceScenePipeline(model, 5, 40, point_dtype="float16")
+    half = [dataclasses.replace(sc, lidar=sc.lidar.astype(np.float16),
+                                radar=sc.radar.astype(np.float16)) for sc in scenes]
+    cast = [pipe16.score_scene(sc) for sc in scenes]
+    assert all(c == pipe.score_scene(h) for c, h in zip(cast, half))
+    half_err = max(max_avg_diff(c, a, 0, 5e-3) for c, a in zip(cast, singles))
+    del pipe16
+    log(f"device pipeline with float16 points: the same averaged edges, max|diff| from "
+        f"float32 points {half_err:.3e}")
+
+    # the active model: kNN graphs of the kernel run replayed in the plain
+    # run; grouped against singles only reported (a group's batch shapes
+    # change the summation order of x, and a kNN near-tie may flip)
+    pipe_a = DeviceScenePipeline(active_mm, 5, 40)
+    assert not pipe_a.fused
+    pipe_a.score_scenes(scenes)  # warm-up
+    knn_caps = []
+    counters(reset=True)
+    with capture_knn(knn_caps):
+        act_singles = [pipe_a.score_scene(sc) for sc in scenes]
+    act_single_launches = counters()["segment_sum"]
+    counters(reset=True)
+    with grouping_forced():
+        act_grouped = pipe_a.score_scenes(scenes)
+    act_group_launches = counters()["segment_sum"]
+    assert act_single_launches == 18 * len(scenes), act_single_launches
+    assert act_group_launches == 18, act_group_launches
+    with replay_knn(knn_caps), plain_segment_sum():
+        act_plain = [pipe_a.score_scene(sc) for sc in scenes]
+    act_pipe_err = max(max_avg_diff(a, b) for a, b in zip(act_singles, act_plain))
+    seg_err = max(seg_err, act_pipe_err)
+    assert all(g.keys() == a.keys() for g, a in zip(act_grouped, act_singles))
+    act_group_diff = max(abs(g[k] - a[k]) for g, a in zip(act_grouped, act_singles) for k in a)
+    log(f"active device pipeline: segment_sum {act_single_launches} over {len(scenes)} scene "
+        f"forwards, {act_group_launches} for the group; max|kernel - plain| with the kNN "
+        f"graphs replayed {act_pipe_err:.3e}; max|grouped - singles| {act_group_diff:.3e}")
+
+    # scoring from the precomputed encodings of 3b (encoders run in 512-row
+    # chunks there, over the group's rows in phase 3)
+    counters(reset=True)
+    s32 = SceneEncodedScorer(model, embedding_dtype="float32").score_scenes(
+        scenes, windows_list, encodings_list=encs)
+    enc_launches = counters()["fused_mp"]
+    s16 = SceneEncodedScorer(model).score_scenes(scenes, windows_list, encodings_list=encs)
+    n_batches = sum(-(-v // 8) for v in buckets.values())
+    assert enc_launches == n_batches, (enc_launches, n_batches)
+    pairs_s = [(a, b, c) for ss, e32, e16 in zip(scores, s32, s16)
+               for a, b, c in zip(ss, e32, e16)]
+    same32 = all(np.array_equal(a, b) for a, b, _ in pairs_s)
+    enc32_err = max(float(np.abs(a - b).max()) for a, b, _ in pairs_s)
+    enc16_err = max(float(np.abs(a - c).max()) for a, _, c in pairs_s)
+    for a, b, c in pairs_s:
+        np.testing.assert_allclose(b, a, rtol=RTOL, atol=ATOL)
+        assert c.shape == a.shape
+        np.testing.assert_allclose(c, a, atol=5e-3)
+    log(f"encodings path: {enc_launches} fused_mp launches; float32 transport vs the raw "
+        f"encode {'bit-identical' if same32 else f'max|diff| {enc32_err:.3e}'}; float16 "
+        f"max|diff| {enc16_err:.3e}")
+
     # ---- 4. timing -----------------------------------------------------
     # the first full batch of the (256, 4096) bucket, with the inputs the
     # main path gives the kernel (kept from one more run); plain and kernel
@@ -1398,6 +1719,7 @@ def main() -> int:
     del captured, args, inputs
 
     wall_ms, device_ms, rows = profile_device(lambda: scorer.score_scenes(scenes, windows_list))
+    noop_profile = (wall_ms, device_ms)
     log(f"profile score_scenes: wall {wall_ms:.2f} ms, device busy {device_ms:.2f} ms "
         f"({100 * device_ms / wall_ms:.1f}%)")
     for us, key, count in rows[:10]:
@@ -1586,6 +1908,7 @@ def main() -> int:
 
     wall_ms, device_ms, rows = profile_device(
         lambda: scorer_a.score_scenes(scenes, windows_list))
+    active_profile = (wall_ms, device_ms)
     log(f"profile active score_scenes: wall {wall_ms:.2f} ms, device busy {device_ms:.2f} ms "
         f"({100 * device_ms / wall_ms:.1f}%)")
     for us, key, count in rows[:12]:
@@ -1610,6 +1933,127 @@ def main() -> int:
             + "/".join(f"{t:.3f}" for t in turns_s) + " ms)")
     del active_train
 
+    # ---- 4d. the device pipeline ------------------------------------------
+    # warm: per-scene dispatches (all four enqueued, then fetched) and the
+    # grouped dispatch, each by CUDA events around the whole call and then
+    # profiled, beside phase 3/4's score_scenes; the kernel at the
+    # pipeline's window grids (one scene, the group) with its bound over
+    # the valid edges and over every slot; the active pipeline's group
+    def run_singles(p=pipe):
+        pend = [p.dispatch_scene(sc) for sc in scenes]
+        return [p.finalize_scene(x) for x in pend]
+
+    def run_group(p=pipe):
+        with grouping_forced():
+            return p.score_scenes(scenes)
+
+    for name, run in (("singles", run_singles), ("grouped", run_group),
+                      ("active grouped", lambda: run_group(pipe_a))):
+        run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        run()
+        end.record()
+        end.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        ev_ms = start.elapsed_time(end)
+        wall_ms, device_ms, rows = profile_device(run)
+        log(f"timing device pipeline {name}: {ev_ms:.2f} ms (CUDA events), host {host_ms:.2f} "
+            f"ms, {pipe_edges / (ev_ms / 1e3):.0f} valid edges/s; profile wall {wall_ms:.2f} "
+            f"ms, device busy {device_ms:.2f} ms ({100 * device_ms / wall_ms:.1f}%), "
+            f"{sum(c for _, _, c in rows)} device operations")
+        for us, key, count in rows[:10]:
+            log(f"  {us / 1e3:9.3f} ms  x{count:<4d} {key[:90]}")
+    # where the host's time goes: enqueueing the four scenes (no wait)
+    # against waiting for their results
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pend = [pipe.dispatch_scene(sc) for sc in scenes]
+    t1 = time.perf_counter()
+    for x in pend:
+        pipe.finalize_scene(x)
+    t2 = time.perf_counter()
+    log(f"  singles on the host: enqueue {(t1 - t0) * 1e3:.2f} ms for {len(scenes)} scenes, "
+        f"then {(t2 - t1) * 1e3:.2f} ms waiting for and unpacking the results")
+    log(f"  beside score_scenes (phase 3, the same scenes, bucketed host windows): "
+        f"{score_ms:.2f} ms, {n_edges / (score_ms / 1e3):.0f} edges/s, device busy "
+        f"{100 * noop_profile[1] / noop_profile[0]:.1f}%; active score_scenes {active_ms:.2f} "
+        f"ms, busy {100 * active_profile[1] / active_profile[0]:.1f}%")
+
+    # where grouping pays on this card: per-scene dispatches and one group
+    # in turns (singles, group, group, singles; 3 timed runs each) at
+    # window 5 (work W * N * E per scene above _GROUP_WORK_CEILING: the
+    # group forced) and at window 3 (under it: score_scenes' own group)
+    from batch3dmot_tpu_torch.infer.device_pipeline import _GROUP_WORK_CEILING
+
+    pipe3 = DeviceScenePipeline(model, 3, 40)
+    route3 = pipe3.dispatch_scenes(scenes)
+    assert route3[0] == "group", route3[0]
+    group3_diff = max(max_avg_diff(g, pipe3.score_scene(sc))
+                      for g, sc in zip(pipe3.finalize_scenes(route3), scenes))
+    edges3 = sum(w.num_edges for sc in scenes for w in build_scene_graphs(sc, 3, gc40))
+    grouping = {}
+    for label, p, forced, n_edges_p in (("window 5", pipe, True, pipe_edges),
+                                        ("window 3", pipe3, False, edges3)):
+        q = [p._quanta(sc) for sc in scenes]
+        work = max(-(-w // 8) * 8 * n_ * n_ * min(40, n_) for _, w, n_ in q)
+
+        def grouped_run(p=p, forced=forced):
+            with grouping_forced() if forced else contextlib.nullcontext():
+                return p.score_scenes(scenes)
+
+        turns = [cuda_ms(lambda: run_singles(p), 3), cuda_ms(grouped_run, 3),
+                 cuda_ms(grouped_run, 3), cuda_ms(lambda: run_singles(p), 3)]
+        s_ms, g_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+        grouping[label] = dict(work_per_scene=work, singles_ms=s_ms, grouped_ms=g_ms,
+                               valid_edges=n_edges_p)
+        log(f"grouping at {label}: work W*N*E per scene {work / 1e6:.1f}M (ceiling "
+            f"{_GROUP_WORK_CEILING / 1e6:.0f}M), {n_edges_p} valid edges; singles "
+            f"{s_ms:.2f} ms, grouped {g_ms:.2f} ms, singles/grouped {s_ms / g_ms:.3f} (turns "
+            "singles/grouped/grouped/singles " + "/".join(f"{t:.2f}" for t in turns)
+            + f" ms); grouped {n_edges_p / (g_ms / 1e3):.0f} valid edges/s")
+    log(f"  window 3: max|grouped - singles| {group3_diff:.3e}")
+    del pipe3
+
+    kept_mp = []
+
+    def keep_mp(*args, **kw):
+        kept_mp.append(args)
+        return fused_mp_scores_cuda(*args, **kw)
+
+    fused_mp.fused_mp_scores_cuda = keep_mp
+    try:
+        pipe.score_scene(scenes[0])
+        run_group()
+    finally:
+        fused_mp.fused_mp_scores_cuda = fused_mp_scores_cuda
+    pipe_kernel = {}
+    for label, args in zip(("one scene", "group"), kept_mp):
+        inputs, flat, meta, depth = args[:6], args[6], args[7], args[8]
+        _, _, widths = pack_mp_weights(flat, meta, model.node_dim, model.edge_dim, True)
+        with torch.inference_mode():
+            turns = [cuda_ms(lambda: fused_mp_scores_plain(*args), 3),
+                     cuda_ms(lambda: fused_mp_scores_cuda(*args), 10),
+                     cuda_ms(lambda: fused_mp_scores_cuda(*args), 10),
+                     cuda_ms(lambda: fused_mp_scores_plain(*args), 3)]
+            _, dev_ms, dev_rows = profile_device(
+                lambda: [fused_mp_scores_cuda(*args) for _ in range(5)])
+        k_ms, p_ms = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+        fv, bv = mp_work(inputs, widths, depth)
+        fa, ba = mp_work(inputs, widths, depth, all_slots=True)
+        (bv_ms, bv_by), (ba_ms, ba_by) = bound(fv, bv), bound(fa, ba)
+        b_, n_, _ = inputs[0].shape
+        shape = f"({n_}, {inputs[1].shape[1]}) x{b_}"
+        pipe_kernel[label] = (k_ms, dev_ms / 5, p_ms, bv_ms, bv_by, ba_ms, shape)
+        log(f"timing fused_mp at the pipeline's {label} grid {shape} ({int(inputs[-1].sum())} "
+            f"valid of {inputs[-1].numel()} edge slots): kernel {k_ms:.3f} ms, device time per "
+            f"call {dev_ms / 5:.3f} ms, plain {p_ms:.3f} ms (turns plain/kernel/kernel/plain "
+            + "/".join(f"{t:.3f}" for t in turns) + f" ms); bound over valid edges "
+            f"{bv_ms:.3f} ms ({fv / 1e9:.2f} GFLOP; {bv_by}), over every slot {ba_ms:.3f} ms "
+            f"({fa / 1e9:.2f} GFLOP; {ba_by}); by sub-kernel: " + kernel_rows(dev_rows[:6], 5))
+    del kept_mp, args, inputs
+
     kernels = [dict(
         name="fused_mp", route="cuda",
         source="batch3dmot_tpu_torch/csrc/fused_mp.cu",
@@ -1617,6 +2061,14 @@ def main() -> int:
         launches=launches["fused_mp"], max_abs_err=max_err,
         ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
         library_ms=None,
+        # the device pipeline (3f, 4d): launches of its per-scene and grouped
+        # runs, and the kernel at the group's window grid
+        device_pipeline=dict(
+            launches=single_launches, grouped_launches=group_launches,
+            grid=pipe_kernel["group"][6], ms=pipe_kernel["group"][0],
+            plain_ms=pipe_kernel["group"][2], bound_ms=pipe_kernel["group"][3],
+            bound_by=pipe_kernel["group"][4], bound_all_slots_ms=pipe_kernel["group"][5],
+            grouping=grouping),
     )]
     for tag, src_file, replaces, err in (
         ("fwd", "batch3dmot_tpu_torch/csrc/fused_mp.cu",
@@ -1636,6 +2088,8 @@ def main() -> int:
         replaces="batch3dmot_tpu/ops/pallas_segment.py:29 (via :56)",
         launches=active_launches, max_abs_err=seg_err, ms=seg_ms, plain_ms=seg_plain_ms,
         bound_ms=seg_bound_ms, bound_by=seg_bound_by, library_ms=seg_lib_ms,
+        device_pipeline=dict(launches=act_single_launches,
+                             grouped_launches=act_group_launches),
     ))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(f"card: {card}")

@@ -64,6 +64,36 @@ def test_plan_fits_the_kernels(bucket, name, with_att):
             assert split == most or tiles * (split + 1) > fused_mp.H100_SMS
 
 
+# the device pipeline's windows (max_nodes, max_nodes * k): the smoke's
+# scenes at kNN 40, and the largest at kNN 40
+PIPELINE_GRIDS = ((256, 10240), (512, 20480), (1024, 40960))
+
+
+@pytest.mark.parametrize("windows", [1, 16, 64])
+@pytest.mark.parametrize("grid", PIPELINE_GRIDS)
+def test_plan_fits_the_pipeline_windows(grid, windows):
+    """The device pipeline hands the inference kernel whole scenes' window
+    grids, single and grouped: within the cover and its shared memory."""
+    n, e = grid
+    assert n <= fused_mp.COVER[0] and e <= fused_mp.COVER[1]
+    plan = fused_mp_plan(windows, n, e, _packed("mm", True)[4], True)
+    assert all(0 < v <= fused_mp.SMEM_LIMIT for v in plan["smem"].values())
+
+
+def test_training_pair_keeps_the_largest_bucket():
+    """The training pair is held to the largest bucket: a window of the
+    wider inference cover is refused before any launch."""
+    from batch3dmot_tpu_torch.ops.fused_mp_train import TRAIN_COVER, train_forward_cuda
+
+    assert TRAIN_COVER == DEFAULT_BUCKETS[-1]
+    flat, meta = _packed("mm", True)[:2]
+    n, e = fused_mp.COVER
+    x0, e0 = torch.zeros(1, n, 96), torch.zeros(1, e, 64)
+    idx, mask = torch.zeros(1, e, dtype=torch.int32), torch.ones(1, e, dtype=torch.bool)
+    with pytest.raises(ValueError, match="cover"):
+        train_forward_cuda(x0, e0, e0, idx, idx, mask, flat, meta, 6)
+
+
 @pytest.mark.parametrize("case", ["nodes", "edges", "width", "message lanes"])
 def test_plan_refuses_shapes_outside_the_cover(case):
     """Beyond the largest bucket, a width that is not a multiple of 4, or a

@@ -1,8 +1,10 @@
 """Import hygiene of the PyTorch port: it imports no JAX, no flax and
-nothing of ``batch3dmot_tpu``, it imports, scores, takes a training step
+nothing of ``batch3dmot_tpu``, it imports, scores (the encode-once scorer,
+from precomputed encodings, and the device pipeline), takes a training step
 and runs device-resident and K-step epochs without ``nvcc`` or a GPU (in
-both kNN-conv modes), and its default-device entry points (scorers,
-trainer) refuse to run on the CPU unless asked to."""
+both kNN-conv modes), and its default-device entry points (scorers, the
+device pipeline and builder, trainer) refuse to run on the CPU unless asked
+to."""
 
 import os
 import subprocess
@@ -42,13 +44,37 @@ SCRIPT = textwrap.dedent(
         SceneEncodedScorer(model, device="cpu"), [(scene, windows)])
     assert avg and all(np.isfinite(v) for v in avg.values())
 
-    for entry in (SceneEncodedScorer, make_scorer):
+    # the device pipeline, predict_scene_device, the device builder and
+    # scoring from precomputed encodings
+    from batch3dmot_tpu_torch.config import Config, PredictConfig
+    from batch3dmot_tpu_torch.graphs.build_device import build_scene_graphs_device
+    from batch3dmot_tpu_torch.infer.device_pipeline import (
+        DeviceScenePipeline, predict_scene_device, predict_scenes_device)
+    from batch3dmot_tpu_torch.train.encoded import precompute_scene_encodings
+
+    pipe = DeviceScenePipeline(model, 2, 3, device="cpu")
+    assert pipe.score_scene(scene) and pipe.score_scenes([scene, scene])[1]
+    cfg = Config(graph_construction=GraphConstructionConfig(top_knn_nodes=3))
+    _, dev_avg = predict_scene_device(model, scene, cfg, device="cpu")
+    assert dev_avg.keys() == avg.keys()
+    assert predict_scenes_device(model, [scene, scene], cfg, device="cpu")[1][1] == dev_avg
+    assert len(build_scene_graphs_device(scene, 2, device="cpu")) == len(windows)
+    enc = precompute_scene_encodings(model, scene, device="cpu")
+    (_, enc_avg), = predict_scenes(SceneEncodedScorer(model, device="cpu"), [(scene, windows)],
+                                   PredictConfig(), encodings_list=[enc])
+    assert enc_avg.keys() == avg.keys()
+
+    for entry in (SceneEncodedScorer, make_scorer,
+                  lambda m: DeviceScenePipeline(m, 2, 3),
+                  lambda m: predict_scene_device(m, scene),
+                  lambda m: predict_scenes_device(m, [scene]),
+                  lambda m: build_scene_graphs_device(scene, 2)):
         try:
             entry(model)
         except RuntimeError as err:
             assert "device='cpu'" in str(err)
         else:
-            raise AssertionError(f"{entry.__name__} ran without a GPU")
+            raise AssertionError(f"{entry} ran without a GPU")
 
     from batch3dmot_tpu_torch.config import GNNConfig
     from batch3dmot_tpu_torch.train.encoded import (

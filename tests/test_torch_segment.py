@@ -170,8 +170,8 @@ def test_segment_sum_refuses_other_devices():
 
 # the path's shapes: mm message passing (D 128), the GAT messages (D 96,
 # 48) and softmax denominators (D 1), pose message passing (D 64), the
-# largest bucket (several edge chunks per block), and windows with no
-# valid edge
+# largest bucket and the device pipeline's largest window (several edge
+# chunks per block), and windows with no valid edge
 CUDA_CASES = [
     ((8,), 256, 4096, 128, False),
     ((8,), 256, 5120, 96, False),
@@ -180,6 +180,7 @@ CUDA_CASES = [
     ((8,), 128, 2560, 48, False),
     ((1,), 1024, 32768, 128, False),
     ((1,), 1024, 32768, 1, False),
+    ((1,), 1024, 40960, 128, False),  # the device pipeline's largest window
     ((2, 3), 77, 300, 6, True),
 ]
 
@@ -244,3 +245,31 @@ def test_cuda_kernel_matches_plain(lead, n, e, d, empty):
     (g_kernel,) = torch.autograd.grad(segment_sum(x, ids, n, mask), x, ct)
     (g_plain,) = torch.autograd.grad(segment_kernel.segment_sum_plain(x, ids, n, mask), x, ct)
     torch.testing.assert_close(g_kernel, g_plain, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_traced_launches_counts_every_replay():
+    """torch.profiler's count of the kernel in a CUDA graph replayed 4
+    times, 40 traces in a row: 4 in each (a trace that lost the records of
+    its first milliseconds would count fewer, or raise for a lost marker),
+    and the replays' sum equals the plain version's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    from batch3dmot_tpu_torch.ops.cuda_build import traced_launches
+
+    n = 64
+    arrays = _inputs(np.random.default_rng(0), (2,), 512, n, 32)
+    data, ids, mask = (torch.from_numpy(a).cuda() for a in arrays)
+    segment_sum(data, ids, n, mask)  # builds and loads the library
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = segment_sum(data, ids, n, mask)
+
+    def run():
+        for _ in range(4):
+            graph.replay()
+
+    counts = [traced_launches(run) for _ in range(40)]
+    assert all(c == {"segment_sum_kernel": 4} for c in counts), counts
+    torch.testing.assert_close(out, segment_sum_plain(data, ids, n, mask), rtol=2e-4, atol=2e-5)
