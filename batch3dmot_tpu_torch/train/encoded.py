@@ -11,10 +11,18 @@ is stacked once: per window in the dense form
 (:func:`materialize_encoded_dataset`), or as one table of every distinct
 detection plus per-window rows into it in the deduplicated form
 (:func:`materialize_encoded_dataset_dedup`).
+
+Training from ``.b3d`` stores keeps each scene's table next to its store as
+``<store>.enc.npz`` (:func:`scene_encodings_cached`), keyed by a digest of
+the frozen encoders' weights, and :class:`StreamingEncodedBatcher` walks the
+stores scene by scene with one scene resident.
 """
 
 from __future__ import annotations
 
+import hashlib
+import json
+import os
 from typing import Any, Dict, Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -33,6 +41,7 @@ from batch3dmot_tpu_torch.graph import (
     pad_graph,
     pick_bucket,
 )
+from batch3dmot_tpu_torch.io.store import GraphStoreReader
 from batch3dmot_tpu_torch.train.data import (
     alloc_rows,
     group_sizes_by_bucket,
@@ -45,6 +54,7 @@ from batch3dmot_tpu_torch.train.data import (
 
 ENC_DIMS = {"x_img": 96, "pn": 256, "rn": 256}
 ENC_KEYS = ("x_img", "pn", "rn", "lidar_present", "radar_present")
+FROZEN_ENCODERS = ("resnet", "pointnet", "radarnet")
 
 
 def precompute_scene_encodings(
@@ -87,6 +97,102 @@ def precompute_scene_encodings(
         "lidar_present": lidar.reshape(m, -1).sum(1) != 0,
         "radar_present": radar.reshape(m, -1).sum(1) != 0,
     }
+
+
+def _encoder_digest(model) -> str:
+    """Digest of the frozen encoders' weights: sha1 over the name, shape,
+    dtype and bytes of every entry of the ``resnet``, ``pointnet`` and
+    ``radarnet`` state dicts (buffers included), cut to 16 hex digits. It
+    keys the on-disk encoding caches, so that grafted encoder weights
+    invalidate them. The bytes come off the device in one copy."""
+    entries = [(f"{name}.{key}", t.detach()) for name in FROZEN_ENCODERS
+               if hasattr(model, name)
+               for key, t in getattr(model, name).state_dict().items()]
+    h = hashlib.sha1()
+    if entries:
+        flat = torch.cat([t.contiguous().reshape(-1).view(torch.uint8) for _, t in entries])
+        blob = flat.cpu().numpy().tobytes()
+        off = 0
+        for key, t in entries:
+            nbytes = t.numel() * t.element_size()
+            h.update(key.encode())
+            h.update(str(tuple(t.shape)).encode())
+            h.update(str(t.dtype).encode())
+            h.update(blob[off: off + nbytes])
+            off += nbytes
+    return h.hexdigest()[:16]
+
+
+def store_detection_count(store_path: str) -> Optional[int]:
+    """Detection-row count from the store's metadata sidecar
+    (``<scene>_metadata.json``, one entry per detection, written by
+    ``save_scene_graphs``); None when the store has no readable sidecar."""
+    meta_path = store_path.replace(".b3d", "_metadata.json")
+    try:
+        with open(meta_path) as f:
+            return len(json.load(f))
+    except Exception:
+        return None
+
+
+def probe_scene_encoding_cache(
+    store_path: str, digest: str, expected_rows: Optional[int] = None,
+) -> Optional[Dict[str, np.ndarray]]:
+    """Validity probe for ``<store>.enc.npz``: the cache must exist, be
+    readable, carry this encoder ``digest`` and, when the store's row count
+    is known, agree with it (the digest keys the encoders only, so a store
+    rebuilt in place at another density would otherwise misalign every
+    row). Returns the encoding dict; None when absent or invalid. A stale
+    or unreadable cache is reported."""
+    cache_path = f"{store_path}.enc.npz"
+    if not os.path.exists(cache_path):
+        return None
+    try:
+        with np.load(cache_path, allow_pickle=False) as z:
+            if str(z["digest"]) != digest:
+                return None
+            if expected_rows is not None and len(z["x_img"]) != expected_rows:
+                print(
+                    f"encodings: ignoring stale embedding cache {cache_path} "
+                    f"({len(z['x_img'])} rows vs {expected_rows} store "
+                    "detections — the store was rebuilt in place)"
+                )
+                return None
+            return {k: z[k] for k in ENC_KEYS}
+    except Exception as e:
+        # writes are atomic (os.replace), but the disk is not trusted
+        print(f"encodings: ignoring unreadable embedding cache {cache_path} ({e})")
+        return None
+
+
+def scene_encodings_cached(
+    model, store_path: str, scene_loader, cache: bool = True,
+    digest: Optional[str] = None, expected_rows: Optional[int] = None, device=None,
+) -> Dict[str, np.ndarray]:
+    """A scene's encoding table, persisted next to its ``.b3d`` store as
+    ``<store>.enc.npz`` keyed by :func:`_encoder_digest`. On a miss the
+    scene (``scene_loader(store_path)``) is encoded on ``device`` (None:
+    the GPU) in inference mode and the table written atomically (a
+    temporary name, then ``os.replace``). ``digest``: pass the encoder
+    digest when calling per scene. ``expected_rows`` defaults to the
+    metadata sidecar's row count, so that a digest-matching cache of a
+    store rebuilt in place is recomputed, not trusted."""
+    if digest is None:
+        digest = _encoder_digest(model)
+    if expected_rows is None:
+        expected_rows = store_detection_count(store_path)
+    if cache:
+        hit = probe_scene_encoding_cache(store_path, digest, expected_rows)
+        if hit is not None:
+            return hit
+    cache_path = f"{store_path}.enc.npz"
+    enc = precompute_scene_encodings(model, scene_loader(store_path), device=device)
+    if cache:
+        # np.savez appends '.npz' unless the name ends in it
+        tmp = f"{cache_path}.{os.getpid()}.tmp.npz"
+        np.savez(tmp, digest=digest, **enc)
+        os.replace(tmp, cache_path)
+    return enc
 
 
 def _assemble_encoded_batch(windows, encs, batch_size, mn, me):
@@ -171,6 +277,93 @@ class EncodedGraphBatcher:
                 [w for w, _ in pairs], [e for _, e in pairs],
                 self.batch_size, mn, me,
             )
+
+
+class StreamingEncodedBatcher:
+    """Scene-streaming variant of :class:`EncodedGraphBatcher`, with one
+    scene resident: window sizes are indexed from the store headers alone
+    (``GraphStoreReader.window_sizes``), each epoch walks the scenes in
+    shuffled order, and a scene's windows and encoding table are loaded
+    (:func:`scene_encodings_cached`, the digest computed once here) only
+    while its batches are emitted. Windows shuffle within a scene and scenes
+    across the epoch; a batch never mixes scenes.
+
+    The batcher holds ``model``, whose frozen encoders a trainer never
+    updates. A scene is encoded inside :meth:`epoch`'s generator, so a
+    consumer that captures CUDA graphs must pull each batch before it
+    captures (``GNNTrainer.train_epoch`` does)."""
+
+    def __init__(
+        self,
+        store_paths: Sequence[str],
+        model,
+        scene_loader,
+        batch_size: int,
+        buckets: Sequence[Tuple[int, int]] = DEFAULT_BUCKETS,
+        seed: int = 0,
+        uniform: bool = False,
+        cache: bool = True,
+        device=None,
+    ):
+        self.batch_size = batch_size
+        self.model = model
+        self.scene_loader = scene_loader
+        self.cache = cache
+        self.device = device
+        self._digest = _encoder_digest(model)
+        self._rng = np.random.default_rng(seed)
+        self.store_paths = list(store_paths)
+        # header-only size index (no array data loaded)
+        self._sizes = [GraphStoreReader(p).window_sizes() for p in self.store_paths]
+        if uniform:
+            buckets = uniform_bucket(
+                [(n, e) for nodes, edges in self._sizes
+                 for n, e in zip(nodes, edges) if n > 0 and e > 0],
+                buckets,
+            )
+        self.buckets = tuple(buckets)
+
+    def _live_by_bucket(self, si: int) -> Dict[Tuple[int, int], List[int]]:
+        nodes, edges = self._sizes[si]
+        by_bucket: Dict[Tuple[int, int], List[int]] = {}
+        for i, (n, e) in enumerate(zip(nodes, edges)):
+            if n > 0 and e > 0:
+                by_bucket.setdefault(pick_bucket(n, e, self.buckets), []).append(i)
+        return by_bucket
+
+    def __len__(self) -> int:
+        return sum(
+            (len(idxs) + self.batch_size - 1) // self.batch_size
+            for si in range(len(self.store_paths))
+            for idxs in self._live_by_bucket(si).values()
+        )
+
+    def epoch(self, shuffle: bool = True) -> Iterator[Tuple[PaddedGraph, Tuple]]:
+        scene_order = np.arange(len(self.store_paths))
+        if shuffle:
+            self._rng.shuffle(scene_order)
+        for si in scene_order:
+            by_bucket = self._live_by_bucket(si)
+            if not by_bucket:
+                continue
+            path = self.store_paths[si]
+            enc = scene_encodings_cached(self.model, path, self.scene_loader, self.cache,
+                                         digest=self._digest, device=self.device)
+            reader = GraphStoreReader(path)
+            scene_batches = []
+            for b, idxs in by_bucket.items():
+                order = np.array(idxs)
+                if shuffle:
+                    self._rng.shuffle(order)
+                for lo in range(0, len(order), self.batch_size):
+                    scene_batches.append((b, order[lo: lo + self.batch_size]))
+            if shuffle:
+                self._rng.shuffle(scene_batches)
+            for (mn, me), idxs in scene_batches:
+                windows = [reader.window(int(i)) for i in idxs]
+                yield _assemble_encoded_batch(windows, [enc] * len(windows),
+                                              self.batch_size, mn, me)
+            del reader, enc  # the scene's residency ends here
 
 
 def _items(windows_with_encodings, what):

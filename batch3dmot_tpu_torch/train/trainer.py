@@ -21,7 +21,10 @@ its host-batched path).
     names.
 
 Window batches come from :class:`batch3dmot_tpu_torch.train.data.GraphBatcher`
-(PaddedGraph) or :class:`~batch3dmot_tpu_torch.train.encoded.EncodedGraphBatcher`
+or :class:`~batch3dmot_tpu_torch.train.store_data.StoreGraphBatcher`
+(PaddedGraph), or from
+:class:`~batch3dmot_tpu_torch.train.encoded.EncodedGraphBatcher` or
+:class:`~batch3dmot_tpu_torch.train.encoded.StreamingEncodedBatcher`
 ((PaddedGraph, encodings)); ``fit`` takes a step per batch and fetches its
 scores for the metrics on the host. Two paths keep the host out of the
 steps:
@@ -56,7 +59,7 @@ from batch3dmot_tpu_torch.graph import PaddedGraph
 from batch3dmot_tpu_torch.models.gnn import PoseGNN
 from batch3dmot_tpu_torch.models.layers import init_params_
 from batch3dmot_tpu_torch.ops.fused_mp_train import fused_training_scores
-from batch3dmot_tpu_torch.train.encoded import DedupEncodings
+from batch3dmot_tpu_torch.train.encoded import FROZEN_ENCODERS, DedupEncodings
 from batch3dmot_tpu_torch.train.metrics import average_precision_multi, masked_bce
 from batch3dmot_tpu_torch.utils.checkpoint import (
     epoch_checkpoint_name,
@@ -64,7 +67,6 @@ from batch3dmot_tpu_torch.utils.checkpoint import (
     save_checkpoint,
 )
 
-FROZEN_ENCODERS = ("resnet", "pointnet", "radarnet")
 # eager steps before a capture (lazy state: optimizer moments, cuBLAS
 # workspaces, the kernels' libraries and cached layouts); undone after
 WARMUP_STEPS = 2
@@ -213,6 +215,8 @@ class GNNTrainer:
             return _nanmean_metrics(metrics)
         previous, self._sources = self._sources, {}
         pending: Dict[tuple, list] = defaultdict(list)
+        # the batcher's generator (which may run the encoders: the streaming
+        # batcher) advances only here, between groups, never inside a capture
         for batch in batcher.epoch(shuffle=True):
             key = _signature(batch)
             pending[key].append(batch)
@@ -256,26 +260,30 @@ class GNNTrainer:
 
     def fit(self, train_batcher, val_batcher=None, epochs: Optional[int] = None,
             log_dir: Optional[str] = None, version: str = "synthetic",
-            verbose: bool = True, fused_steps: int = 1) -> List[Dict[str, float]]:
+            verbose: bool = True, fused_steps: int = 1, writer=None) -> List[Dict[str, float]]:
         """``epochs`` (default ``cfg.num_epochs``) of training, each followed
-        by validation when a ``val_batcher`` is given and a checkpoint under
-        ``log_dir`` when one is given; ``fused_steps`` as in
-        :meth:`train_epoch`."""
+        by validation when a ``val_batcher`` is given, a checkpoint under
+        ``log_dir`` when one is given and one record of the epoch's metrics
+        through ``writer`` (``utils.metric_logging.MetricWriter``) when one
+        is given; ``fused_steps`` as in :meth:`train_epoch`."""
         history: List[Dict[str, float]] = []
         for epoch in range(self.cfg.num_epochs if epochs is None else epochs):
             t0 = time.time()
             m = self.train_epoch(train_batcher, fused_steps=fused_steps)
             self._finish_epoch(epoch, m, t0, history, val_batcher=val_batcher,
-                               log_dir=log_dir, version=version, verbose=verbose)
+                               log_dir=log_dir, version=version, verbose=verbose,
+                               writer=writer)
         return history
 
     def _finish_epoch(self, epoch, m, t0, history, *, val_batcher=None,
-                      log_dir=None, version="synthetic", verbose=True):
+                      log_dir=None, version="synthetic", verbose=True, writer=None):
         """Shared epoch tail: val metrics, logging, checkpointing."""
         if val_batcher is not None:
             m.update(self.eval_epoch(val_batcher))
         m["epoch_time_s"] = time.time() - t0
         history.append(m)
+        if writer is not None:
+            writer.log(epoch, m)
         if verbose:
             val_ap = m.get("val/avgprec", float("nan"))
             print(
@@ -450,7 +458,7 @@ class GNNTrainer:
 
     def fit_device(self, dataset, epochs: int = 1, val_batcher=None, val_dataset=None,
                    log_dir: Optional[str] = None, version: str = "synthetic",
-                   verbose: bool = True, seed: int = 0) -> List[Dict[str, float]]:
+                   verbose: bool = True, seed: int = 0, writer=None) -> List[Dict[str, float]]:
         """``fit`` over a device-resident dataset: one group
         (``materialize_encoded_dataset``, ``..._dedup`` or
         ``train.data.materialize_graph_dataset``) or a list of per-bucket
@@ -463,7 +471,7 @@ class GNNTrainer:
         and APs come back once. ``val_dataset`` (the same forms) is run
         every epoch over fixed sequential rows, as ``eval_epoch`` on an
         unshuffled batcher; pass it or ``val_batcher`` (the host path), not
-        both."""
+        both. ``writer`` as in :meth:`fit`."""
         if val_dataset is not None and val_batcher is not None:
             raise ValueError("fit_device: pass val_dataset or val_batcher, not both")
         groups = dataset if isinstance(dataset, list) else [dataset]
@@ -490,7 +498,7 @@ class GNNTrainer:
                                                 self._run_steps(res, idx, train=False))
             self._finish_epoch(epoch, _nanmean_metrics(metrics), t0, history,
                                val_batcher=val_batcher, log_dir=log_dir,
-                               version=version, verbose=verbose)
+                               version=version, verbose=verbose, writer=writer)
         return history
 
     def _cpu_state(self) -> Dict[str, torch.Tensor]:

@@ -4,17 +4,34 @@
 A checkpoint is one ``torch.save`` file (state dicts and plain values)
 written atomically, with an optional ``.meta.json`` sidecar; per-epoch
 files carry the train and validation AP in their name, as the reference's
-do. The JAX package writes flax msgpack; these files are the port's own
-(``.pt``).
+do. These files are the port's own (``.pt``).
+
+The JAX package writes flax msgpack. :func:`load_flax_checkpoint` loads a
+GNN from its epoch checkpoints and trainer states, and
+:func:`merge_encoder_params` grafts its standalone encoder checkpoints into
+a GNN's frozen encoders (the counterpart of its ``merge_encoder_params``
+and of ``train-gnn``'s encoder grafting); both read the files with the
+port's own decoder (:mod:`batch3dmot_tpu_torch.utils.msgpack`).
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Union
 
+import numpy as np
 import torch
+
+from batch3dmot_tpu_torch.utils import msgpack
+from batch3dmot_tpu_torch.utils.weights import (
+    encoder_variables,
+    flax_to_state_dict,
+    load_flax_variables,
+)
+
+# a standalone encoder checkpoint: a flax variable tree, or its msgpack file
+Encoder = Union[str, os.PathLike, Dict[str, Any]]
 
 
 def save_checkpoint(path: str, obj: Any, metadata: Optional[Dict] = None) -> str:
@@ -47,3 +64,69 @@ def epoch_checkpoint_name(
         log_dir,
         f"{prefix}_epoch{epoch}_{version}_TrainAP{train_ap:.6f}_ValAP{val_ap:.6f}.pt",
     )
+
+
+def load_flax_checkpoint(path: str, model: torch.nn.Module) -> torch.nn.Module:
+    """Load ``model`` (a port ``MultimodalGNN`` or ``PoseGNN``) from a flax
+    msgpack file of the JAX package: an epoch checkpoint (``{"params",
+    "batch_stats"}``) or a trainer state (``{"variables", "opt_state",
+    "step"}``, of which only the weights are read; the optimizer's moments
+    are not carried over). Strict: every parameter and statistic of the
+    model must be covered and nothing left over."""
+    tree = msgpack.read(path)
+    variables = tree.get("variables", tree)
+    if "params" not in variables:
+        raise ValueError(f"{path}: neither an epoch checkpoint nor a trainer state "
+                         f"(top-level keys {sorted(tree)})")
+    return load_flax_variables(model, variables)
+
+
+def _take_matching(dst, src, where: str):
+    """The leaves of ``src`` at the places ``dst`` has them (extra leaves of
+    ``src`` are dropped), each of ``dst``'s shape."""
+    if isinstance(dst, dict):
+        out = {}
+        for k, v in dst.items():
+            if not isinstance(src, dict) or k not in src:
+                raise ValueError(f"encoder checkpoint missing '{where}/{k}' — wrong "
+                                 f"architecture for this submodule?")
+            out[k] = _take_matching(v, src[k], f"{where}/{k}")
+        return out
+    if tuple(dst.shape) != tuple(np.shape(src)):
+        raise ValueError(f"encoder checkpoint shape mismatch at '{where}': "
+                         f"{tuple(np.shape(src))} vs expected {tuple(dst.shape)}")
+    return src
+
+
+def merge_encoder_params(model: torch.nn.Module, resnet: Optional[Encoder] = None,
+                         pointnet: Optional[Encoder] = None,
+                         radarnet: Optional[Encoder] = None) -> torch.nn.Module:
+    """Graft separately trained encoders into ``model``'s frozen submodules
+    of the same names. Each is a flax variable tree (``{"params",
+    "batch_stats"}``, numpy leaves) or the path of a msgpack file holding
+    one, as the JAX package's encoder trainers write them (with their
+    classification heads and the ResNet's decoder). Only the leaves the
+    GNN's tree has are taken; a missing leaf or a shape mismatch raises
+    ``ValueError`` naming its path. Returns ``model``."""
+    taken = {}
+    for name, enc in (("resnet", resnet), ("pointnet", pointnet), ("radarnet", radarnet)):
+        if enc is None:
+            continue
+        if not hasattr(model, name):
+            raise ValueError(f"the model has no {name} encoder")
+        if isinstance(enc, (str, os.PathLike)):
+            enc = msgpack.read(os.fspath(enc))
+        want = encoder_variables(model, name)
+        taken[name] = {coll: {name: _take_matching(want[coll], enc.get(coll, {}),
+                                                   f"{name}/{coll}")}
+                       for coll in ("params", "batch_stats")}
+    # every encoder checked before any is loaded
+    for name, tree in taken.items():
+        sub = getattr(model, name)
+        prefix = f"{name}."
+        sd = {k[len(prefix):]: torch.tensor(v) for k, v in flax_to_state_dict(tree).items()}
+        for key, buf in sub.state_dict().items():
+            if key.endswith("num_batches_tracked"):
+                sd[key] = buf
+        sub.load_state_dict(sd, strict=True)
+    return model

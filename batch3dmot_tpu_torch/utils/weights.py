@@ -16,6 +16,11 @@ attention keeps ``in_proj_weight`` whole [3D, D]: the value slice is
 filled, the query and key slices (which have no effect) are zero. The kNN
 GATConv of ``knn_conv_mode='active'`` models takes PyG's names: ``lin``
 kernel -> ``lin.weight``, ``att_src``/``att_dst`` [F, 1] -> [1, 1, F].
+
+:func:`encoder_variables` goes the other way for a frozen encoder: the flax
+tree of a port submodule (``resnet``, ``pointnet`` or ``radarnet``), the
+leaves the GNN's tree holds (a copy of the encoder half of
+``batch3dmot_tpu/utils/torch_import.py``).
 """
 
 from __future__ import annotations
@@ -149,8 +154,9 @@ def flax_to_state_dict(variables: Dict[str, Any]) -> Dict[str, np.ndarray]:
     for name in ("c2c_att", "l2l_att", "r2r_att"):
         if name in p:
             _attention(out, name, p[name])
-    for flax_name, torch_name in _MP_NAMES.items():
-        _mlp(out, f"message_passing.{torch_name}", p["message_passing"][flax_name])
+    if "message_passing" in p:  # absent from an encoder-only tree
+        for flax_name, torch_name in _MP_NAMES.items():
+            _mlp(out, f"message_passing.{torch_name}", p["message_passing"][flax_name])
     if "knn_conv" in p:  # only models in knn_conv_mode='active' have it
         _gat(out, "knn_conv", p["knn_conv"])
     return out
@@ -176,3 +182,90 @@ def load_flax_variables(model: nn.Module, variables: Dict[str, Any]) -> nn.Modul
             sd[key] = torch.zeros_like(buf)
     model.load_state_dict(sd, strict=True)
     return model
+
+
+# ---- port state dict -> flax tree, the frozen encoders ---------------------
+
+
+def _to_linear(sd, key):
+    out = {"kernel": sd[f"{key}.weight"].T}
+    if f"{key}.bias" in sd:
+        out["bias"] = sd[f"{key}.bias"]
+    return out
+
+
+def _to_point_conv(sd, key):
+    return {"kernel": sd[f"{key}.weight"][:, :, 0].T, "bias": sd[f"{key}.bias"]}
+
+
+def _to_conv2d(sd, key):
+    out = {"kernel": sd[f"{key}.weight"].transpose(2, 3, 1, 0)}
+    if f"{key}.bias" in sd:
+        out["bias"] = sd[f"{key}.bias"]
+    return out
+
+
+def _to_bn(sd, key):
+    return ({"scale": sd[f"{key}.weight"], "bias": sd[f"{key}.bias"]},
+            {"mean": sd[f"{key}.running_mean"], "var": sd[f"{key}.running_var"]})
+
+
+def _to_point_feat(sd, key, p, s):
+    for i in range(3):
+        p[f"mlp_{i}"] = _to_point_conv(sd, f"{key}.conv{i + 1}")
+        p[f"bn_{i}"], s[f"bn_{i}"] = _to_bn(sd, f"{key}.bn{i + 1}")
+
+
+def _to_feat_head(sd, p, s):
+    p["fc1"] = _to_linear(sd, "fc1")
+    p["bn1"], s["bn1"] = _to_bn(sd, "bn1")
+    p["fc2"] = _to_linear(sd, "fc2")
+    p["bn2"], s["bn2"] = _to_bn(sd, "bn2")
+
+
+def _to_resnet(sd, p, s):
+    p["stem"] = _to_conv2d(sd, "conv")
+    for i in (1, 2, 3):
+        key, bp, bs = f"res_block{i}", {}, {}
+        bp["conv1"] = _to_conv2d(sd, f"{key}.conv1")
+        bp["bn1"], bs["bn1"] = _to_bn(sd, f"{key}.bn1")
+        bp["conv2"] = _to_conv2d(sd, f"{key}.conv2")
+        bp["bn2"], bs["bn2"] = _to_bn(sd, f"{key}.bn2")
+        bp["down_conv"] = _to_conv2d(sd, f"{key}.downsample.0")
+        bp["down_bn"], bs["down_bn"] = _to_bn(sd, f"{key}.downsample.1")
+        p[f"block{i}"], s[f"block{i}"] = bp, bs
+
+
+def _to_pointnet(sd, p, s):
+    stn_p, stn_s = {}, {}
+    _to_point_feat(sd, "feat.stn", stn_p, stn_s)
+    for i in range(2):
+        stn_p[f"fc_{i}"] = _to_linear(sd, f"feat.stn.fc{i + 1}")
+        stn_p[f"fc_bn_{i}"], stn_s[f"fc_bn_{i}"] = _to_bn(sd, f"feat.stn.bn{i + 4}")
+    stn_p["fc_out"] = _to_linear(sd, "feat.stn.fc3")
+    p["feat"], s["feat"] = {"stn": stn_p}, {"stn": stn_s}
+    _to_point_feat(sd, "feat", p["feat"], s["feat"])
+    _to_feat_head(sd, p, s)
+
+
+def _to_radarnet(sd, p, s):
+    p["feat"], s["feat"] = {}, {}
+    _to_point_feat(sd, "feat", p["feat"], s["feat"])
+    _to_feat_head(sd, p, s)
+
+
+_TO_FLAX = {"resnet": _to_resnet, "pointnet": _to_pointnet, "radarnet": _to_radarnet}
+
+
+def encoder_variables(model: nn.Module, name: str) -> Dict[str, Any]:
+    """``{"params": ..., "batch_stats": ...}`` of the frozen encoder
+    ``name`` of a port ``MultimodalGNN`` in the JAX package's layout: the
+    leaves the GNN's flax tree holds under ``name`` (the ResNet without its
+    decoder, PointNet and RadarNet without their classification heads), as
+    numpy arrays."""
+    sd = {k: v.detach().cpu().numpy()
+          for k, v in getattr(model, name).state_dict().items()}
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    _TO_FLAX[name](sd, params, stats)
+    return {"params": params, "batch_stats": stats}

@@ -79,6 +79,28 @@ Phases, each fatal on failure:
      pipeline (18 segment sums per forward) against the plain segment sum
      with its kNN graphs replayed; scoring from 3b's precomputed encodings
      (float32 and float16 transport) against the raw encode;
+  3g. training and checkpoints from disk: the 4 scenes written as ``.b3d``
+     stores with their metadata sidecars; the native loader built by g++
+     from ``native/graphstore.cc`` (its failure fails the phase, with the
+     compiler's text); every window read back through the numpy reader and
+     the native fill at its bucket equal to ``to_padded`` of the in-memory
+     window; ``make_batcher`` returns a ``StoreGraphBatcher``, whose batches
+     equal the in-memory ``GraphBatcher``'s; the ``'noop'`` ``PoseGNN``
+     through ``fit`` from it (launches equal the steps, losses those of the
+     in-memory epoch) and 3 ``mm`` steps on raw store batches (the losses of
+     3b's raw-window steps); ``scene_encodings_cached`` writes each
+     ``.enc.npz`` (tables against 3b's), a second pass calls the encoder 0
+     times, a truncated cache is reported and re-encoded; the
+     ``StreamingEncodedBatcher`` through one epoch of
+     ``fit(fused_steps=4)`` with a ``MetricWriter`` (0 encoder calls, one
+     replay per step, losses those of eager steps on the same batches, one
+     ``metrics.jsonl`` record), then an epoch of replays alone traced as in
+     3e; ``fit_device`` over the dedup dataset of the cached tables (3e's
+     losses); the epoch checkpoint loaded into a fresh model scores
+     bit-identically through B1-B3; ``merge_encoder_params`` grafts the
+     phase-3 encoders (in the JAX layout) into a fresh GNN, whose encodings
+     are bit-identical. The flax msgpack decoder is tested on the CPU only:
+     the smoke imports no JAX, so it cannot write such a file;
   4. timing: each kernel and its plain version with CUDA events on real
      main-path batches (inference, and the training pair at (256, 4096) x8,
      the device time per call by sub-kernel of the inference forward, the
@@ -93,7 +115,13 @@ Phases, each fatal on failure:
      scene and grouped, beside ``score_scenes``; singles against a group in
      turns at window 5 (above the grouping ceiling) and window 3 (under
      it); and the kernel at its window grids with its bound over valid
-     edges and over every slot.
+     edges and over every slot; (4e) the host ms to assemble one
+     (256, 4096) x2 batch by the native fill, the numpy reader and the
+     in-memory windows; the ``PoseGNN`` fit epoch from the store batcher
+     and from the in-memory one in turns (wall ms, training edges/s,
+     device busy share), and each batcher's epoch assembled on the host
+     alone and copied to the card alone; the streaming epoch cold (caches deleted) and
+     warm beside the ``EncodedGraphBatcher`` epoch, in turns.
 
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. Exits non-zero, without the last
@@ -106,6 +134,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import io
 import json
 import subprocess
 import sys
@@ -445,6 +474,50 @@ def record_losses(trainer):
     return losses
 
 
+def record_step_losses(trainer):
+    """A list that receives the loss of every host ``train_step`` of
+    ``trainer`` (``fit`` without fused steps)."""
+    losses = []
+    train_step = trainer.train_step
+
+    def recording(batch):
+        out = train_step(batch)
+        losses.append(float(out[0]))
+        return out
+
+    trainer.train_step = recording
+    return losses
+
+
+def count_calls(obj, name):
+    """A one-element list counting the calls of ``obj.<name>`` from now on,
+    through an instance attribute over the method (``del obj.<name>``
+    removes it)."""
+    calls = [0]
+    method = getattr(obj, name)
+
+    def counting(*args, **kw):
+        calls[0] += 1
+        return method(*args, **kw)
+
+    setattr(obj, name, counting)
+    return calls
+
+
+def take_slot(graph, k):
+    """Window ``k`` of a stacked PaddedGraph."""
+    return type(graph)(**{f.name: getattr(graph, f.name)[k] for f in dataclasses.fields(graph)})
+
+
+def graphs_equal(a, b):
+    """Every field of two PaddedGraphs of the same dtype and equal."""
+    import torch
+
+    return all(getattr(a, f.name).dtype == getattr(b, f.name).dtype
+               and torch.equal(getattr(a, f.name), getattr(b, f.name))
+               for f in dataclasses.fields(a))
+
+
 def batch_tensors(batch):
     """Every tensor of a (PaddedGraph, encodings) batch."""
     graph, enc = batch
@@ -782,7 +855,7 @@ def main() -> int:
         GraphConstructionConfig,
         PredictConfig,
     )
-    from batch3dmot_tpu_torch.graph import pick_bucket
+    from batch3dmot_tpu_torch.graph import batch_graphs, pick_bucket
     from batch3dmot_tpu_torch.graphs import build_scene_graphs
     from batch3dmot_tpu_torch.graphs.build_device import build_scene_graphs_device
     from batch3dmot_tpu_torch.infer.device_pipeline import (
@@ -790,6 +863,8 @@ def main() -> int:
         predict_scene_device,
         predict_scenes_device,
     )
+    from batch3dmot_tpu_torch.io import GraphStoreReader, native, save_scene_graphs
+    from batch3dmot_tpu_torch.io.native import NativeGraphStore, batch_to_padded_graph
     from batch3dmot_tpu_torch.infer.predict import (
         SceneEncodedScorer,
         average_scene_edges,
@@ -815,20 +890,32 @@ def main() -> int:
         segment_sum_cuda,
         segment_sum_plain,
     )
-    from batch3dmot_tpu_torch.train.data import GraphBatcher, materialize_graph_dataset
+    from batch3dmot_tpu_torch.train.data import (
+        GraphBatcher,
+        materialize_graph_dataset,
+        to_padded,
+    )
     from batch3dmot_tpu_torch.train.encoded import (
+        ENC_KEYS,
         EncodedGraphBatcher,
+        StreamingEncodedBatcher,
+        _encoder_digest,
         materialize_encoded_dataset,
         materialize_encoded_datasets_dedup,
         precompute_scene_encodings,
+        scene_encodings_cached,
     )
+    from batch3dmot_tpu_torch.train.store_data import StoreGraphBatcher, make_batcher
     from batch3dmot_tpu_torch.train.trainer import (
         FROZEN_ENCODERS,
+        WARMUP_STEPS,
         GNNTrainer,
         epoch_batches,
         index_rows,
     )
-    from batch3dmot_tpu_torch.utils.checkpoint import load_checkpoint
+    from batch3dmot_tpu_torch.utils.checkpoint import load_checkpoint, merge_encoder_params
+    from batch3dmot_tpu_torch.utils.metric_logging import MetricWriter
+    from batch3dmot_tpu_torch.utils.weights import encoder_variables
 
     t_start = time.perf_counter()
     card = subprocess.run(
@@ -1674,6 +1761,188 @@ def main() -> int:
         f"encode {'bit-identical' if same32 else f'max|diff| {enc32_err:.3e}'}; float16 "
         f"max|diff| {enc16_err:.3e}")
 
+    # ---- 3g. training and checkpoints from disk -----------------------------
+    # the 4 scenes' windows as .b3d stores (with their metadata sidecars), read
+    # back through the numpy reader and the native loader (built by g++ from
+    # native/graphstore.cc into build/torch_kernels); the 'noop' PoseGNN
+    # through fit from make_batcher's StoreGraphBatcher and 3 mm train_steps
+    # on raw store batches; the encoding caches written, hit and repaired;
+    # the streaming batcher through fit(fused_steps=4) with a metric writer,
+    # and the cached tables through fit_device; the epoch checkpoint loaded
+    # and scored; the encoders grafted into a fresh GNN
+    store_tmp = tempfile.TemporaryDirectory()
+    store_dir = store_tmp.name
+    t_phase = time.perf_counter()
+    native_fresh = not native.library_path().exists()
+    assert native.native_available(), f"native loader did not build:\n{native.native_error()}"
+    native_build_s = time.perf_counter() - t_phase
+    paths = [save_scene_graphs(ws, store_dir, metadata=sc.metadata)
+             for sc, ws in zip(scenes, windows_list)]
+    loader = dict(zip(paths, scenes)).__getitem__
+    store_mib = sum(Path(p).stat().st_size for p in paths) / 2**20
+    for p, ws in zip(paths, windows_list):
+        reader, nat = GraphStoreReader(p), NativeGraphStore(p)
+        assert reader.num_windows == nat.num_windows == len(ws), (p, len(ws))
+        for i, w in enumerate(ws):
+            b = pick_bucket(w.num_nodes, w.num_edges)
+            want = to_padded(w, *b)
+            assert graphs_equal(to_padded(reader.window(i), *b), want), (p, i, "reader")
+            filled = batch_to_padded_graph(nat.fill_padded_batch([i], *b))
+            assert graphs_equal(take_slot(filled, 0), want), (p, i, "native")
+        nat.close()
+    log(f"stores: {len(paths)} .b3d files, {store_mib:.1f} MiB; native loader "
+        f"{native.library_path().name} {'built' if native_fresh else 'loaded'} in "
+        f"{native_build_s:.2f} s; all {n_windows} windows read back equal to_padded of the in-memory windows "
+        "through the numpy reader and through the native fill at their buckets")
+
+    said = io.StringIO()
+    with contextlib.redirect_stdout(said):
+        store_b = make_batcher(paths, 2, seed=0, uniform=True)
+    assert isinstance(store_b, StoreGraphBatcher), said.getvalue()
+    mem_b = GraphBatcher(all_windows, 2, seed=0, uniform=True)
+    for a, b in zip(StoreGraphBatcher(paths, 2, seed=9, uniform=True).epoch(),
+                    GraphBatcher(all_windows, 2, seed=9, uniform=True).epoch(), strict=True):
+        assert graphs_equal(a, b)
+    t_ps = GNNTrainer(make_model("pose"), pose_cfg, init_state_dict=pose_start)
+    t_pm = GNNTrainer(make_model("pose"), pose_cfg, init_state_dict=pose_start)
+    l_ps, l_pm = record_step_losses(t_ps), record_step_losses(t_pm)
+    counters(reset=True)
+    (h_ps,) = t_ps.fit(store_b, epochs=1, verbose=False)
+    c_store = counters()
+    (h_pm,) = t_pm.fit(mem_b, epochs=1, verbose=False)
+    assert c_store["fwd"] == c_store["bwd"] == len(store_b), (c_store, len(store_b))
+    assert np.isfinite(l_ps).all() and len(l_ps) == len(store_b)
+    np.testing.assert_allclose(l_ps, l_pm, rtol=1e-4)
+    raw_store = list(StoreGraphBatcher(paths, 2, seed=3, uniform=True).epoch())[:3]
+    assert raw_store[0].img.dtype == torch.uint8 and raw_store[0].lidar.shape[-2:] == (128, 3)
+    t_rs = GNNTrainer(make_model("mm"), GNNConfig(**clr), init_state_dict=start_sd)
+    counters(reset=True)
+    l_store = [float(t_rs.train_step(b)[0]) for b in raw_store]
+    c_raw = counters()
+    assert c_raw["fwd"] == c_raw["bwd"] == 3, c_raw
+    np.testing.assert_allclose(l_store, l_raw, rtol=1e-4)
+    state = t_rs.model.state_dict()
+    for k, v in frozen0.items():
+        assert torch.equal(state[k], v), f"frozen {k} moved"
+    del t_rs, raw_store
+    log(f"store-fed training: {said.getvalue().strip()}; the 'noop' PoseGNN fit from the "
+        f"StoreGraphBatcher: {len(store_b)} steps, launches {c_store['fwd']}/{c_store['bwd']}, "
+        f"loss {h_ps['train/loss']:.6f}, step losses vs the same epoch from the in-memory "
+        f"GraphBatcher: max rel diff {max_rel_diff(l_ps, l_pm):.2e}; mm on raw store batches "
+        f"(uint8 crops, points, radar): 3 train_steps, losses {[f'{v:.6f}' for v in l_store]} "
+        f"vs 3b's raw windows: max rel diff {max_rel_diff(l_store, l_raw):.2e}")
+
+    encode_calls = count_calls(model, "encode_frozen")
+    cached = [scene_encodings_cached(model, p, loader) for p in paths]
+    assert encode_calls[0] > 0 and all(Path(p + ".enc.npz").exists() for p in paths)
+    cache_err = 0.0
+    for got, want in zip(cached, encs):
+        for k in ENC_KEYS:
+            np.testing.assert_allclose(got[k], want[k], rtol=RTOL, atol=ATOL, err_msg=k)
+            cache_err = max(cache_err, float(np.abs(got[k].astype(np.float32)
+                                                    - want[k].astype(np.float32)).max()))
+    encode_calls[0] = 0
+    for p in paths:
+        scene_encodings_cached(model, p, loader)
+    hit_calls = encode_calls[0]
+    assert hit_calls == 0, hit_calls
+    blob = Path(paths[0] + ".enc.npz").read_bytes()
+    Path(paths[0] + ".enc.npz").write_bytes(blob[: len(blob) // 3])
+    said = io.StringIO()
+    with contextlib.redirect_stdout(said):
+        again = scene_encodings_cached(model, paths[0], loader)
+    assert "ignoring unreadable embedding cache" in said.getvalue(), said.getvalue()
+    assert encode_calls[0] > 0
+    for k in ENC_KEYS:
+        assert np.array_equal(again[k], cached[0][k]), k
+    assert Path(paths[0] + ".enc.npz").stat().st_size == len(blob)
+    del model.encode_frozen  # the counting wrapper
+    log(f"encoding caches: {len(paths)} .enc.npz written, each table vs 3b's "
+        f"precompute_scene_encodings max|diff| {cache_err:.3e}; second pass: {hit_calls} "
+        f"encoder calls; a truncated cache reported and re-encoded ({encode_calls[0]} calls)")
+
+    # the streaming batcher from warm caches: one epoch of fit(fused_steps=4)
+    # with a metric writer and a checkpoint, against eager steps on the same
+    # batches; an epoch of replays only under the profiler (launches = steps
+    # x one eager step's); the cached tables through fit_device (dedup)
+    t_s = GNNTrainer(make_model("mm"), clr_cfg, init_state_dict=start_sd)
+    stream = StreamingEncodedBatcher(paths, t_s.model, loader, clr["batch_size"], seed=4,
+                                     uniform=True)
+    stream_steps = len(stream)
+    stream_calls = count_calls(t_s.model, "encode_frozen")
+    s_losses = record_losses(t_s)
+    log_dir_s = Path(store_dir) / "log"
+    writer = MetricWriter(str(log_dir_s), tensorboard=False)
+    counters(reset=True)
+    replays0 = t_s.graph_replays
+    (h_s,) = t_s.fit(stream, epochs=1, log_dir=str(log_dir_s), verbose=False, fused_steps=4,
+                     writer=writer)
+    writer.close()
+    c_stream = counters()
+    assert stream_calls[0] == 0, stream_calls
+    assert t_s.graph_replays - replays0 == stream_steps, (t_s.graph_replays, stream_steps)
+    assert c_stream["fwd"] == c_stream["bwd"] == WARMUP_STEPS + 1, c_stream
+    assert np.isfinite(h_s["train/loss"]) and len(s_losses) == stream_steps
+    records = [json.loads(line) for line in (log_dir_s / "metrics.jsonl").read_text().splitlines()]
+    assert len(records) == 1 and records[0]["step"] == 0, records
+    assert records[0]["train/loss"] == h_s["train/loss"]
+    (ckpt_s,) = log_dir_s.glob("gnn_epoch0_*.pt")
+    t_e = GNNTrainer(make_model("mm"), clr_cfg, init_state_dict=start_sd)
+    e_losses = [float(t_e.train_step(b)[0]) for b in
+                StreamingEncodedBatcher(paths, t_e.model, loader, 2, seed=4, uniform=True).epoch()]
+    np.testing.assert_allclose(s_losses, e_losses, rtol=1e-4)
+    stream_rel = max_rel_diff(s_losses, e_losses)  # the later epochs add to the list
+    stream_diff, stream_at = max_param_diff(t_s, t_e)
+    assert stream_diff <= 2 * lr * stream_steps, stream_diff
+    del t_e
+    counters(reset=True)
+    trained_scores = SceneEncodedScorer(t_s.model).score_scenes(scenes, windows_list)
+    del t_s.model.encode_frozen
+    rep_stream = replayed(t_s, lambda: t_s.fit(stream, epochs=1, verbose=False, fused_steps=4),
+                          stream_steps, mm_step)
+    log(f"streaming training: StreamingEncodedBatcher (uniform, batch 2) over the stores, "
+        f"{stream_steps} steps in groups of 4 from warm caches: 0 encoder calls, "
+        f"{stream_steps} graph replays (wrappers: {c_stream['fwd']} launches, the warm-up and "
+        f"the capture), loss {h_s['train/loss']:.6f}; step losses vs eager train_steps on the "
+        f"same batches: max rel diff {stream_rel:.2e}, max |param "
+        f"diff| {stream_diff:.2e} ({stream_at}); metrics.jsonl 1 record; an epoch of "
+        f"{stream_steps} replays, no wrapper launch: {rep_stream}")
+
+    pairs_c = [(w, enc) for p, enc in zip(paths, cached) for w in GraphStoreReader(p).windows()
+               if w.num_nodes > 0 and w.num_edges > 0]
+    t_d, h_d, d_losses = resident("mm", start_sd, materialize_encoded_datasets_dedup(pairs_c))
+    assert t_d.graph_replays == steps, (t_d.graph_replays, steps)
+    first_dedup = dedup_losses[:steps]  # 3e's first epoch (later ones add to the list)
+    np.testing.assert_allclose(d_losses, first_dedup, rtol=1e-4)
+    log(f"fit_device dedup from the cached tables: {t_d.graph_replays} replays, loss "
+        f"{h_d['train/loss']:.6f}; step losses vs 3e's dedup epoch from the in-memory "
+        f"encodings: max rel diff {max_rel_diff(d_losses, first_dedup):.2e}")
+    del t_d
+
+    fresh = make_model("mm")
+    fresh.load_state_dict(load_checkpoint(str(ckpt_s), map_location="cpu"))
+    counters(reset=True)
+    ckpt_scores = SceneEncodedScorer(fresh).score_scenes(scenes, windows_list)
+    ckpt_launches = counters()["fused_mp"]
+    assert ckpt_launches == n_batches, (ckpt_launches, n_batches)
+    for a, b in zip((s for ss in ckpt_scores for s in ss),
+                    (s for ss in trained_scores for s in ss), strict=True):
+        assert np.array_equal(a, b)
+    graft = make_model("mm")
+    merge_encoder_params(graft, **{n: encoder_variables(model, n) for n in FROZEN_ENCODERS})
+    assert _encoder_digest(graft) == _encoder_digest(model)
+    enc_model = precompute_scene_encodings(model, scenes[0])
+    enc_graft = precompute_scene_encodings(graft, scenes[0])
+    for k in ENC_KEYS:
+        assert np.array_equal(enc_graft[k], enc_model[k]), k
+    del fresh, graft
+    phase_3g_s = time.perf_counter() - t_phase
+    log(f"checkpoints: {ckpt_s.name} loads into a fresh model, whose score_scenes ({ckpt_launches} "
+        f"fused_mp launches) is bit-identical to the trained model's; merge_encoder_params "
+        f"grafts the phase-3 encoders (in the JAX layout) into a fresh GNN: encodings "
+        f"bit-identical, same digest; phase 3g {phase_3g_s:.1f} s (the flax msgpack decoder "
+        "is held to flax on the CPU only: the smoke imports no JAX to write a file)")
+
     # ---- 4. timing -----------------------------------------------------
     # the first full batch of the (256, 4096) bucket, with the inputs the
     # main path gives the kernel (kept from one more run); plain and kernel
@@ -2054,6 +2323,117 @@ def main() -> int:
             f"({fa / 1e9:.2f} GFLOP; {ba_by}); by sub-kernel: " + kernel_rows(dev_rows[:6], 5))
     del kept_mp, args, inputs
 
+    # ---- 4e. the store paths ---------------------------------------------
+    # host ms to assemble one (256, 4096) x2 batch of two windows of the
+    # first store, three ways (the native fill, the numpy reader + to_padded,
+    # the in-memory windows + to_padded); the 'noop' PoseGNN's fit epoch from
+    # the StoreGraphBatcher and from the in-memory GraphBatcher in turns; the
+    # streaming epoch cold (its caches deleted: the scenes are encoded inside
+    # the epoch) and warm, beside the EncodedGraphBatcher epoch, in turns
+    # (every form fused_steps=4, its graphs captured)
+    mn, me = store_b.buckets[0]
+    two = [0, 1]
+    nat = NativeGraphStore(paths[0])
+    reader = GraphStoreReader(paths[0])
+    assembly = {
+        "native fill": lambda: batch_to_padded_graph(nat.fill_padded_batch(two, mn, me)),
+        "numpy reader + to_padded": lambda: batch_graphs(
+            [to_padded(reader.window(i), mn, me) for i in two]),
+        "in-memory GraphBatcher": lambda: batch_graphs(
+            [to_padded(windows_list[0][i], mn, me) for i in two]),
+    }
+    fill_bytes = sum(a.nbytes for a in nat.fill_padded_batch(two, mn, me).values())
+    host_ms = {}
+    for name, run in assembly.items():
+        run()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            run()
+        host_ms[name] = (time.perf_counter() - t0) / 20 * 1e3
+    nat.close()
+    log(f"timing batch assembly ({mn}, {me}) x2 on the host ({card}): "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in host_ms.items())
+        + f"; the native fill writes {fill_bytes / 2**20:.2f} MiB")
+
+    def wall_epoch_ms(run):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    store_run = lambda: t_ps.fit(store_b, epochs=1, verbose=False)  # noqa: E731
+    mem_run = lambda: t_pm.fit(mem_b, epochs=1, verbose=False)  # noqa: E731
+    store_edges = sum(w.num_edges for w in all_windows)
+    turns = [wall_epoch_ms(store_run), wall_epoch_ms(mem_run), wall_epoch_ms(mem_run),
+             wall_epoch_ms(store_run)]
+    epoch_store, epoch_mem = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    prof_store, prof_mem = profile_device(store_run), profile_device(mem_run)
+    store_timing = dict(store_ms=epoch_store, memory_ms=epoch_mem,
+                        store_busy=prof_store[1] / prof_store[0],
+                        memory_busy=prof_mem[1] / prof_mem[0])
+    log(f"timing PoseGNN fit epoch ({len(store_b)} steps of ({mn}, {me}) x2, {store_edges} "
+        f"valid edges; {card}): StoreGraphBatcher {epoch_store:.2f} ms, "
+        f"{store_edges / (epoch_store / 1e3):.0f} training edges/s, device busy "
+        f"{100 * store_timing['store_busy']:.1f}%; in-memory GraphBatcher {epoch_mem:.2f} ms, "
+        f"{store_edges / (epoch_mem / 1e3):.0f} training edges/s, device busy "
+        f"{100 * store_timing['memory_busy']:.1f}%; store/memory {epoch_store / epoch_mem:.3f} "
+        "(turns store/memory/memory/store " + "/".join(f"{t:.2f}" for t in turns) + " ms)")
+
+    # where the two epochs' gap lies: each batcher's epoch of batches
+    # assembled on the host alone, then those batches copied to the card
+    # alone (as fit's _to_device does), in turns store/memory/memory/store
+    def host_epoch_ms(batcher):
+        t0 = time.perf_counter()
+        batches = list(batcher.epoch())
+        assemble = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in batches:
+            b.to("cuda")
+        torch.cuda.synchronize()
+        return assemble, (time.perf_counter() - t0) * 1e3
+
+    host_turns = [host_epoch_ms(b) for b in (store_b, mem_b, mem_b, store_b)]
+    host_epoch = {name: [(host_turns[i][j] + host_turns[3 - i][j]) / 2 for j in range(2)]
+                  for i, name in enumerate(("store", "memory"))}
+    store_timing.update(host_epoch_ms=host_epoch)
+    log(f"timing PoseGNN epoch's host side ({len(store_b)} batches; {card}): assembled "
+        f"alone StoreGraphBatcher {host_epoch['store'][0]:.2f} ms, in-memory GraphBatcher "
+        f"{host_epoch['memory'][0]:.2f} ms; copied to the card alone "
+        f"{host_epoch['store'][1]:.2f} ms and {host_epoch['memory'][1]:.2f} ms; of the epochs' "
+        f"gap {epoch_mem - epoch_store:.2f} ms these explain "
+        f"{sum(host_epoch['memory']) - sum(host_epoch['store']):.2f} ms")
+
+    t_form = GNNTrainer(make_model("mm"), clr_cfg, init_state_dict=start_sd)
+    enc_b = EncodedGraphBatcher(pairs, 2, seed=0, uniform=True)
+    warm_run = lambda: t_s.fit(stream, epochs=1, verbose=False, fused_steps=4)  # noqa: E731
+    enc_run = lambda: t_form.fit(enc_b, epochs=1, verbose=False, fused_steps=4)  # noqa: E731
+    enc_run()  # capture
+    for p in paths:
+        Path(p + ".enc.npz").unlink()
+    cold_calls = count_calls(t_s.model, "encode_frozen")
+    cold_ms = wall_epoch_ms(warm_run)
+    del t_s.model.encode_frozen
+    assert cold_calls[0] > 0 and all(Path(p + ".enc.npz").exists() for p in paths)
+    turns = [wall_epoch_ms(warm_run), wall_epoch_ms(enc_run), wall_epoch_ms(enc_run),
+             wall_epoch_ms(warm_run)]
+    warm_ms, enc_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    prof_warm, prof_enc = profile_device(warm_run), profile_device(enc_run)
+    store_timing.update(stream_cold_ms=cold_ms, stream_warm_ms=warm_ms, encoded_ms=enc_ms,
+                        stream_busy=prof_warm[1] / prof_warm[0],
+                        encoded_busy=prof_enc[1] / prof_enc[0],
+                        assembly_ms=host_ms, fill_bytes=fill_bytes)
+    log(f"timing streaming epoch fused_steps=4 ({stream_steps} steps, {train_edges} valid "
+        f"edges; {card}): cold {cold_ms:.2f} ms ({cold_calls[0]} encoder calls), warm "
+        f"{warm_ms:.2f} ms, {train_edges / (warm_ms / 1e3):.0f} training edges/s, device busy "
+        f"{100 * store_timing['stream_busy']:.1f}%; EncodedGraphBatcher {enc_ms:.2f} ms, "
+        f"{train_edges / (enc_ms / 1e3):.0f} training edges/s, device busy "
+        f"{100 * store_timing['encoded_busy']:.1f}%; warm/encoded {warm_ms / enc_ms:.3f} "
+        "(turns warm/encoded/encoded/warm " + "/".join(f"{t:.2f}" for t in turns) + " ms)")
+    del t_s, t_form, t_ps, t_pm
+    store_tmp.cleanup()
+
     kernels = [dict(
         name="fused_mp", route="cuda",
         source="batch3dmot_tpu_torch/csrc/fused_mp.cu",
@@ -2069,6 +2449,8 @@ def main() -> int:
             plain_ms=pipe_kernel["group"][2], bound_ms=pipe_kernel["group"][3],
             bound_by=pipe_kernel["group"][4], bound_all_slots_ms=pipe_kernel["group"][5],
             grouping=grouping),
+        # 3g: scoring the epoch checkpoint loaded from disk
+        store_path=dict(launches=ckpt_launches),
     )]
     for tag, src_file, replaces, err in (
         ("fwd", "batch3dmot_tpu_torch/csrc/fused_mp.cu",
@@ -2082,6 +2464,13 @@ def main() -> int:
             replaces=replaces, launches=train_launches[f"fused_mp_train_{tag}"],
             max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
             library_ms=None,
+            # 3g: eager launches of the store-fed pose epoch and the 3 raw
+            # store steps; the streaming and fit_device epochs' steps are
+            # graph replays (the streaming one traced: steps x one eager
+            # step's kernels); 4e's timings of the store paths, once
+            store_path=dict(launches=c_store[tag] + c_raw[tag], streaming_replays=stream_steps,
+                            fit_device_replays=steps,
+                            **(dict(timing=store_timing) if tag == "fwd" else {})),
         ))
     kernels.append(dict(
         name="segment_sum", route="cuda", source="batch3dmot_tpu_torch/csrc/segment_sum.cu",
@@ -2090,6 +2479,8 @@ def main() -> int:
         bound_ms=seg_bound_ms, bound_by=seg_bound_by, library_ms=seg_lib_ms,
         device_pipeline=dict(launches=act_single_launches,
                              grouped_launches=act_group_launches),
+        # the store paths train and score 'noop' models: no segment sum
+        store_path=dict(launches=0),
     ))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(f"card: {card}")

@@ -2,9 +2,11 @@
 nothing of ``batch3dmot_tpu``, it imports, scores (the encode-once scorer,
 from precomputed encodings, and the device pipeline), takes a training step
 and runs device-resident and K-step epochs without ``nvcc`` or a GPU (in
-both kNN-conv modes), and its default-device entry points (scorers, the
-device pipeline and builder, trainer) refuse to run on the CPU unless asked
-to."""
+both kNN-conv modes), trains from .b3d stores (the native loader built
+with g++, the numpy fallback, per-scene encoding caches and the streaming
+batcher, a metric writer), decodes a flax msgpack file, and its
+default-device entry points (scorers, the device pipeline and builder,
+trainer, the encoding cache) refuse to run on the CPU unless asked to."""
 
 import os
 import subprocess
@@ -119,9 +121,54 @@ SCRIPT = textwrap.dedent(
     else:
         raise AssertionError("GNNTrainer ran without a GPU")
 
+    # training from .b3d stores: the store, the native loader, the store
+    # batcher and its fallback, encoding caches, the streaming batcher (K
+    # steps per dispatch), a metric writer; a flax msgpack blob
+    import contextlib, io, os, tempfile
+    from batch3dmot_tpu_torch.io import GraphStoreReader, save_scene_graphs
+    from batch3dmot_tpu_torch.io import native
+    from batch3dmot_tpu_torch.train import store_data
+    from batch3dmot_tpu_torch.train.encoded import (
+        StreamingEncodedBatcher, scene_encodings_cached)
+    from batch3dmot_tpu_torch.utils import msgpack
+    from batch3dmot_tpu_torch.utils.metric_logging import MetricWriter
+
+    tmp = tempfile.mkdtemp()
+    path = save_scene_graphs(windows, tmp, metadata=scene.metadata)
+    assert len(GraphStoreReader(path).windows()) == len(windows)
+    assert native.native_available(), native.native_error()
+    said = io.StringIO()
+    with contextlib.redirect_stdout(said):
+        sb = store_data.make_batcher([path], 2, uniform=True)
+    assert isinstance(sb, store_data.StoreGraphBatcher) and "native" in said.getvalue()
+    writer = MetricWriter(os.path.join(tmp, "log"), tensorboard=False)
+    (hist,) = pose.fit(sb, epochs=1, verbose=False, writer=writer)
+    store_data.native_available = lambda: False
+    with contextlib.redirect_stdout(said):
+        assert isinstance(store_data.make_batcher([path], 2), GraphBatcher)
+    assert "numpy reader" in said.getvalue()
+    enc = scene_encodings_cached(model, path, lambda p: scene, device="cpu")
+    assert os.path.exists(path + ".enc.npz") and len(enc["x_img"]) == scene.num_detections
+    stream = StreamingEncodedBatcher([path], model, lambda p: scene, 2, uniform=True,
+                                     device="cpu")
+    mm = GNNTrainer(make_model("mm", depth=1), GNNConfig(), device="cpu")
+    (hist,) = mm.fit(stream, epochs=1, verbose=False, fused_steps=2, writer=writer)
+    writer.close()
+    assert len(open(os.path.join(tmp, "log", "metrics.jsonl")).readlines()) == 2
+    tree = msgpack.restore(bytes.fromhex(
+        "82a6706172616d7381a177c71901939103a7666c6f61743332c40c000000000000803f"
+        "00000040a473746570c70e039390a5696e743332c40402000000"))
+    assert tree["params"]["w"].tolist() == [0.0, 1.0, 2.0] and tree["step"] == 2
+    try:
+        scene_encodings_cached(model, path, lambda p: scene, cache=False)
+    except RuntimeError as err:
+        assert "device='cpu'" in str(err)
+    else:
+        raise AssertionError("scene_encodings_cached ran without a GPU")
+
     bad = sorted(m for m in sys.modules
-                 if m in ("jax", "flax", "batch3dmot_tpu")
-                 or m.startswith(("jax.", "flax.", "batch3dmot_tpu.")))
+                 if m in ("jax", "flax", "msgpack", "batch3dmot_tpu")
+                 or m.startswith(("jax.", "flax.", "msgpack.", "batch3dmot_tpu.")))
     assert not bad, bad
     print("ok", len(avg))
     """
