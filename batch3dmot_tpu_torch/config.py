@@ -1,5 +1,5 @@
 """Configuration the port reads: tracking classes, per-class thresholds,
-graph construction, predict and GNN-training settings.
+graph construction, predict, GNN-training and encoder-training settings.
 
 A copy of the matching parts of ``batch3dmot_tpu/config.py`` (the port
 imports nothing of the JAX package), cut to the fields the port reads; the
@@ -24,6 +24,21 @@ TRACKING_CLASSES: Dict[str, int] = {
 }
 
 NUM_CLASSES = len(TRACKING_CLASSES)
+
+# nuScenes category -> tracking class (the encoder datasets' labels)
+CATEGORY_TO_TRACKING_NAME: Dict[str, str] = {
+    "vehicle.bicycle": "bicycle",
+    "vehicle.bus.bendy": "bus",
+    "vehicle.bus.rigid": "bus",
+    "vehicle.car": "car",
+    "vehicle.motorcycle": "motorcycle",
+    "human.pedestrian.adult": "pedestrian",
+    "human.pedestrian.child": "pedestrian",
+    "human.pedestrian.construction_worker": "pedestrian",
+    "human.pedestrian.police_officer": "pedestrian",
+    "vehicle.trailer": "trailer",
+    "vehicle.truck": "truck",
+}
 
 TRACKING_CLASS_NAMES: Dict[int, str] = {v: k for k, v in TRACKING_CLASSES.items()}
 
@@ -112,6 +127,55 @@ class GNNConfig:
     def __post_init__(self) -> None:
         if self.knn_conv_mode not in ("noop", "active"):
             raise ValueError(f"Unknown knn_conv_mode '{self.knn_conv_mode}'")
+
+
+@dataclass
+class EncoderTrainConfig:
+    """Shared hyperparameter shape for the three encoder trainers
+    (``batch3dmot_tpu/config.py:139-152``)."""
+
+    batch_size: int = 32
+    lr: float = 1e-3
+    weight_decay: float = 0.0
+    beta_lo: float = 0.9
+    beta_hi: float = 0.999
+    scheduler_step_size: int = 20
+    scheduler_gamma: float = 0.5
+    num_epochs: int = 10
+    checkpoint: str = ""
+    manual_seed: int = 5621
+
+
+@dataclass
+class ResNetConfig(EncoderTrainConfig):
+    batch_size: int = 32
+    lr: float = 0.002
+    res_size: int = 32  # crop resolution (32x32)
+    ego_rad_min: float = 1.0
+    ego_rad_max: float = 50.0
+    latent_dim: int = 96
+
+
+@dataclass
+class PointNetConfig(EncoderTrainConfig):
+    batch_size: int = 64
+    lr: float = 0.001
+    num_points: int = 128
+    min_lidar_pts: int = 6
+    ego_rad_min: float = 1.0
+    ego_rad_max: float = 50.0
+    feature_transform: bool = False
+
+
+@dataclass
+class RadarNetConfig(EncoderTrainConfig):
+    batch_size: int = 256
+    lr: float = 0.0002
+    num_points: int = 64
+    min_radar_pts: int = 2
+    ego_rad_min: float = 1.0
+    ego_rad_max: float = 50.0
+    feature_transform: bool = False
 
 
 @dataclass

@@ -23,6 +23,7 @@ over the k nearest same-time nodes of x, as the code visibly intended.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -124,7 +125,13 @@ class MultimodalGNN(nn.Module):
     ``modalities`` selects the sensor subset (the model family of
     ``models/registry.py``); ``use_attention=False`` is the concat-fusion
     variant whose attribute encoder takes [img_i, lidar_i, img_j, lidar_j,
-    edge] (512 wide for camera+LiDAR)."""
+    edge] (512 wide for camera+LiDAR).
+
+    ``freeze_encoders`` (default True, as upstream, where the three encoders
+    have ``requires_grad=False``): their features carry no gradient and
+    ``GNNTrainer`` leaves them out of the optimizer. With False they train
+    with the rest; either way they normalise with their running statistics
+    (the JAX package's ``encode_frozen``)."""
 
     def __init__(
         self,
@@ -139,6 +146,7 @@ class MultimodalGNN(nn.Module):
         knn_conv_k: int = 20,
         num_classes: int = 7,
         modalities: Sequence[str] = ("img", "lidar", "radar"),
+        freeze_encoders: bool = True,
     ):
         super().__init__()
         _check_knn_mode(knn_conv_mode)
@@ -152,15 +160,17 @@ class MultimodalGNN(nn.Module):
         self.knn_conv_mode = knn_conv_mode
         self.knn_conv_k = knn_conv_k
         self.modalities = tuple(modalities)
+        self.freeze_encoders = freeze_encoders
         has = self.has
 
+        # the GNN calls the encoders' feature paths only: no decoder, no fc3
         if has("img"):
-            self.resnet = ResNetAE(img_dim)
+            self.resnet = ResNetAE(img_dim, decoder=False)
         if has("lidar"):
-            self.pointnet = PointNetClassifier()
+            self.pointnet = PointNetClassifier(num_classes, head=False)
             self.fc_lidar_encoder = MLP(256, (192, lidar_dim))
         if has("radar"):
-            self.radarnet = RadarNetClassifier()
+            self.radarnet = RadarNetClassifier(num_classes, head=False)
             self.fc_radar_encoder = MLP(256, (192, 128, radar_dim))
 
         self.edge_encoder = MLP(EDGE_DIM, (16, 32, edge_dim))
@@ -192,15 +202,19 @@ class MultimodalGNN(nn.Module):
         self, img: torch.Tensor, lidar: torch.Tensor, radar: torch.Tensor
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Frozen-encoder features for a flat batch of detections:
-        (x_img [M, 96], pointnet_256 [M, 256], radarnet_256 [M, 256]).
-        Disabled modalities return zeros. Presence gating and the
-        trainable projection heads happen in :meth:`pre_message_passing`."""
+        (x_img [M, 96], pointnet_256 [M, 256], radarnet_256 [M, 256]),
+        with the running statistics, without gradient when
+        ``freeze_encoders``. Disabled modalities return zeros. Presence
+        gating and the trainable projection heads happen in
+        :meth:`pre_message_passing`."""
         m = img.shape[0]
         dev = img.device
         zeros = lambda d: torch.zeros(m, d, device=dev)  # noqa: E731
-        x_img = self.resnet.encode(img) if self.has("img") else zeros(self.img_dim)
-        pn = self.pointnet.feat_256(lidar) if self.has("lidar") else zeros(256)
-        rn = self.radarnet.feat_256(radar) if self.has("radar") else zeros(256)
+        frozen = torch.no_grad() if self.freeze_encoders else contextlib.nullcontext()
+        with frozen:
+            x_img = self.resnet.encode(img) if self.has("img") else zeros(self.img_dim)
+            pn = self.pointnet.feat_256(lidar) if self.has("lidar") else zeros(256)
+            rn = self.radarnet.feat_256(radar) if self.has("radar") else zeros(256)
         return x_img, pn, rn
 
     def forward(self, g: PaddedGraph) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -1,5 +1,5 @@
 """Shared layers: MLPs, single-token attention, the kNN graph attention
-convolution, eval-mode batch norm, and seeded parameter initialisation
+convolution, batch norm in both modes, and seeded parameter initialisation
 (counterpart of ``batch3dmot_tpu/models/layers.py``)."""
 
 from __future__ import annotations
@@ -93,19 +93,35 @@ class GATConv(nn.Module):
         return segment_sum(msgs, dst, n, edge_mask) + self.bias
 
 
-def batch_norm_eval(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor) -> torch.Tensor:
-    """Batch norm with the running statistics, whatever the module's mode
-    (the encoders are frozen feature extractors). Channels on dim 1."""
-    return F.batch_norm(
-        x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
-        training=False, eps=bn.eps,
-    )
+def batch_norm(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
+               train: bool = False) -> torch.Tensor:
+    """Batch norm over the channels on dim 1 with the JAX package's (flax's)
+    semantics, whatever the module's own mode.
+
+    ``train=False``: the running statistics. ``train=True``: the batch's
+    mean and biased variance over every other axis normalise x, and the
+    running statistics move 0.1 of the way to that mean and that biased
+    variance. (A torch ``BatchNorm`` module in training mode would move
+    ``running_var`` towards the unbiased variance.) No host sync."""
+    if not train:
+        return F.batch_norm(
+            x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
+            training=False, eps=bn.eps,
+        )
+    out = F.batch_norm(x, None, None, bn.weight, bn.bias, training=True, eps=bn.eps)
+    with torch.no_grad():
+        dims = [d for d in range(x.dim()) if d != 1]
+        var, mean = torch.var_mean(x, dim=dims, correction=0)
+        bn.running_mean.mul_(1.0 - bn.momentum).add_(mean, alpha=bn.momentum)
+        bn.running_var.mul_(1.0 - bn.momentum).add_(var, alpha=bn.momentum)
+    return out
 
 
-def batch_norm_last(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor) -> torch.Tensor:
-    """:func:`batch_norm_eval` for channels-last [..., C] activations."""
+def batch_norm_last(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
+                    train: bool = False) -> torch.Tensor:
+    """:func:`batch_norm` for channels-last [..., C] activations."""
     c = x.shape[-1]
-    return batch_norm_eval(bn, x.reshape(-1, c)).reshape(x.shape)
+    return batch_norm(bn, x.reshape(-1, c), train).reshape(x.shape)
 
 
 @torch.no_grad()

@@ -185,7 +185,8 @@ def fused_training_scores(model, batch,
 
     ``encodings=(x_img, pn, rn, lidar_present, radar_present)`` are the
     frozen-encoder outputs per window node ([B, N, .]); without them the
-    frozen encoders run here, without gradient."""
+    encoders run here (with gradient only when the model's
+    ``freeze_encoders`` is False)."""
     if getattr(model, "knn_conv_mode", "noop") != "noop":
         raise ValueError("fused training: knn_conv_mode must be 'noop'")
     if isinstance(model, PoseGNN):
@@ -195,9 +196,8 @@ def fused_training_scores(model, batch,
         if encodings is None:
             b, n = batch.pose.shape[:2]
             flat = lambda t: t.reshape(b * n, *t.shape[2:])  # noqa: E731
-            with torch.no_grad():
-                xi, pn, rn = model.encode_frozen(
-                    flat(batch.img), flat(batch.lidar), flat(batch.radar))
+            xi, pn, rn = model.encode_frozen(
+                flat(batch.img), flat(batch.lidar), flat(batch.radar))
             encodings = (
                 xi.reshape(b, n, -1), pn.reshape(b, n, -1), rn.reshape(b, n, -1),
                 batch.lidar.sum(dim=(-2, -1)) != 0,

@@ -4,9 +4,12 @@ its host-batched path).
   * optimizer: ``torch.optim.Adam(lr, betas, eps=1e-8, weight_decay)``, the
     reference's optimizer: the decay is added to the gradient before the
     moments (not AdamW), as the JAX package's ``torch_style_adam``;
-  * frozen encoders (``resnet``, ``pointnet``, ``radarnet``) get no update
-    at all: they leave the optimizer and need no gradient, so weight decay
-    cannot shrink them; their batch-norm statistics are the running ones;
+  * the encoders (``resnet``, ``pointnet``, ``radarnet``) of a model with
+    ``freeze_encoders`` (the default) get no update at all: they leave the
+    optimizer and need no gradient, so weight decay cannot shrink them;
+    with ``freeze_encoders=False`` they train with the rest (the JAX
+    trainer's unmasked optimizer). Their batch-norm statistics are the
+    running ones either way;
   * loss: (class-balanced unless ``cfg.loss == 'bce'``) BCE over the real
     edges divided by the window batch size, as the reference divides its
     mean BCE by ``gnn.batch_size``;
@@ -98,9 +101,10 @@ class GNNTrainer:
             self.model.load_state_dict(init_state_dict)
         # PoseGNN emits logits (no sigmoid head); MultimodalGNN emits scores
         self.from_logits = isinstance(self.model, PoseGNN)
-        for name in FROZEN_ENCODERS:
-            if hasattr(self.model, name):
-                getattr(self.model, name).requires_grad_(False)
+        if getattr(self.model, "freeze_encoders", False):
+            for name in FROZEN_ENCODERS:
+                if hasattr(self.model, name):
+                    getattr(self.model, name).requires_grad_(False)
         # on the card: the fused multi-tensor Adam, capturable (its step
         # counts live on the device) so that a CUDA graph can hold it; the
         # CPU refuses capturable and keeps the default implementation

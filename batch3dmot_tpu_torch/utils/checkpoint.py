@@ -7,11 +7,14 @@ files carry the train and validation AP in their name, as the reference's
 do. These files are the port's own (``.pt``).
 
 The JAX package writes flax msgpack. :func:`load_flax_checkpoint` loads a
-GNN from its epoch checkpoints and trainer states, and
-:func:`merge_encoder_params` grafts its standalone encoder checkpoints into
-a GNN's frozen encoders (the counterpart of its ``merge_encoder_params``
-and of ``train-gnn``'s encoder grafting); both read the files with the
-port's own decoder (:mod:`batch3dmot_tpu_torch.utils.msgpack`).
+GNN from its epoch checkpoints and trainer states,
+:func:`load_flax_encoder_checkpoint` a standalone encoder from the JAX
+encoder trainer's epoch checkpoints, and :func:`merge_encoder_params`
+grafts standalone encoder checkpoints (the JAX trainer's, or the port's
+own ``.pt`` from ``train/encoders.py``) into a GNN's encoders (the
+counterpart of its ``merge_encoder_params`` and of ``train-gnn``'s encoder
+grafting); the msgpack files are read with the port's own decoder
+(:mod:`batch3dmot_tpu_torch.utils.msgpack`).
 """
 
 from __future__ import annotations
@@ -27,10 +30,13 @@ from batch3dmot_tpu_torch.utils import msgpack
 from batch3dmot_tpu_torch.utils.weights import (
     encoder_variables,
     flax_to_state_dict,
+    load_encoder_variables,
     load_flax_variables,
+    state_dict_to_encoder_variables,
 )
 
-# a standalone encoder checkpoint: a flax variable tree, or its msgpack file
+# a standalone encoder checkpoint: a flax variable tree, or the path of its
+# msgpack file (the JAX encoder trainer's) or of a port ``.pt`` file
 Encoder = Union[str, os.PathLike, Dict[str, Any]]
 
 
@@ -81,6 +87,25 @@ def load_flax_checkpoint(path: str, model: torch.nn.Module) -> torch.nn.Module:
     return load_flax_variables(model, variables)
 
 
+def load_flax_encoder_checkpoint(path: str, model: torch.nn.Module) -> torch.nn.Module:
+    """Load a standalone port encoder (``ResNetAE``, ``PointNetClassifier``
+    or ``RadarNetClassifier``) from an epoch checkpoint of the JAX encoder
+    trainer (``{prefix}_epoch{e}_loss{loss}.msgpack``: ``{"params",
+    "batch_stats"}``, the decoder or ``fc3`` included), strictly."""
+    return load_encoder_variables(model, msgpack.read(path))
+
+
+def _read_encoder_checkpoint(path: Union[str, os.PathLike], kind: str) -> Dict[str, Any]:
+    """The JAX-layout tree of a standalone encoder checkpoint: a port
+    ``.pt`` (the state dict :class:`~batch3dmot_tpu_torch.train.encoders.
+    EncoderTrainer` writes) of the encoder ``kind`` ('resnet', 'pointnet'
+    or 'radarnet'), or a JAX msgpack file."""
+    path = os.fspath(path)
+    if path.endswith(".pt"):
+        return state_dict_to_encoder_variables(load_checkpoint(path, map_location="cpu"), kind)
+    return msgpack.read(path)
+
+
 def _take_matching(dst, src, where: str):
     """The leaves of ``src`` at the places ``dst`` has them (extra leaves of
     ``src`` are dropped), each of ``dst``'s shape."""
@@ -101,13 +126,14 @@ def _take_matching(dst, src, where: str):
 def merge_encoder_params(model: torch.nn.Module, resnet: Optional[Encoder] = None,
                          pointnet: Optional[Encoder] = None,
                          radarnet: Optional[Encoder] = None) -> torch.nn.Module:
-    """Graft separately trained encoders into ``model``'s frozen submodules
-    of the same names. Each is a flax variable tree (``{"params",
-    "batch_stats"}``, numpy leaves) or the path of a msgpack file holding
-    one, as the JAX package's encoder trainers write them (with their
-    classification heads and the ResNet's decoder). Only the leaves the
-    GNN's tree has are taken; a missing leaf or a shape mismatch raises
-    ``ValueError`` naming its path. Returns ``model``."""
+    """Graft separately trained encoders into ``model``'s encoder
+    submodules of the same names. Each is a flax variable tree
+    (``{"params", "batch_stats"}``, numpy leaves), the path of a msgpack
+    file holding one, as the JAX package's encoder trainers write them
+    (with their classification heads and the ResNet's decoder), or the path
+    of a ``.pt`` epoch checkpoint of the port's encoder trainer. Only the
+    leaves the GNN's tree has are taken; a missing leaf or a shape mismatch
+    raises ``ValueError`` naming its path. Returns ``model``."""
     taken = {}
     for name, enc in (("resnet", resnet), ("pointnet", pointnet), ("radarnet", radarnet)):
         if enc is None:
@@ -115,7 +141,7 @@ def merge_encoder_params(model: torch.nn.Module, resnet: Optional[Encoder] = Non
         if not hasattr(model, name):
             raise ValueError(f"the model has no {name} encoder")
         if isinstance(enc, (str, os.PathLike)):
-            enc = msgpack.read(os.fspath(enc))
+            enc = _read_encoder_checkpoint(enc, name)
         want = encoder_variables(model, name)
         taken[name] = {coll: {name: _take_matching(want[coll], enc.get(coll, {}),
                                                    f"{name}/{coll}")}

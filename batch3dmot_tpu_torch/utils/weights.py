@@ -17,19 +17,29 @@ filled, the query and key slices (which have no effect) are zero. The kNN
 GATConv of ``knn_conv_mode='active'`` models takes PyG's names: ``lin``
 kernel -> ``lin.weight``, ``att_src``/``att_dst`` [F, 1] -> [1, 1, F].
 
-:func:`encoder_variables` goes the other way for a frozen encoder: the flax
-tree of a port submodule (``resnet``, ``pointnet`` or ``radarnet``), the
-leaves the GNN's tree holds (a copy of the encoder half of
-``batch3dmot_tpu/utils/torch_import.py``).
+:func:`encoder_variables` goes the other way for an encoder: the flax tree
+of a GNN's frozen submodule (``resnet``, ``pointnet`` or ``radarnet``), the
+leaves the GNN's tree holds, or of a standalone encoder with its decoder or
+classification head (a copy of the encoder half of
+``batch3dmot_tpu/utils/torch_import.py``); :func:`load_encoder_variables`
+loads such a standalone tree into a port encoder. A ResNet decoder's
+transposed conv is the flax decoder's input-dilated conv kernel flipped
+spatially, with in and out channels swapped.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 from torch import nn
+
+from batch3dmot_tpu_torch.models.encoders import (
+    PointNetClassifier,
+    RadarNetClassifier,
+    ResNetAE,
+)
 
 
 def _f32(x) -> np.ndarray:
@@ -86,16 +96,28 @@ def _gat(out: dict, key: str, p: dict) -> None:
     out[f"{key}.bias"] = _f32(p["bias"])
 
 
-def _resnet(out: dict, p: dict, s: dict) -> None:
-    _conv2d(out, "resnet.conv", p["stem"])
+def _conv_transpose2d(out: dict, key: str, p: dict) -> None:
+    """An input-dilated flax Conv (the decoder's) onto the
+    ``ConvTranspose2d`` weight [I, O, H, W]: kernel HWIO flipped back."""
+    out[f"{key}.weight"] = np.ascontiguousarray(
+        _f32(p["kernel"])[::-1, ::-1].transpose(2, 3, 0, 1))
+    out[f"{key}.bias"] = _f32(p["bias"])
+
+
+def _resnet(out: dict, p: dict, s: dict, pre: str = "resnet.", standalone: bool = False) -> None:
+    """``standalone``: the autoencoder's decoder too (a GNN's tree converts
+    without it, whatever the tree holds)."""
+    _conv2d(out, f"{pre}conv", p["stem"])
     for i in (1, 2, 3):
-        bp, bs, key = p[f"block{i}"], s[f"block{i}"], f"resnet.res_block{i}"
-        _conv2d(out, f"{key}.conv1", bp["conv1"])
-        _bn(out, f"{key}.bn1", bp["bn1"], bs["bn1"])
-        _conv2d(out, f"{key}.conv2", bp["conv2"])
-        _bn(out, f"{key}.bn2", bp["bn2"], bs["bn2"])
-        _conv2d(out, f"{key}.downsample.0", bp["down_conv"])
-        _bn(out, f"{key}.downsample.1", bp["down_bn"], bs["down_bn"])
+        bp, bs, blk = p[f"block{i}"], s[f"block{i}"], f"{pre}res_block{i}"
+        _conv2d(out, f"{blk}.conv1", bp["conv1"])
+        _bn(out, f"{blk}.bn1", bp["bn1"], bs["bn1"])
+        _conv2d(out, f"{blk}.conv2", bp["conv2"])
+        _bn(out, f"{blk}.bn2", bp["bn2"], bs["bn2"])
+        _conv2d(out, f"{blk}.downsample.0", bp["down_conv"])
+        _bn(out, f"{blk}.downsample.1", bp["down_bn"], bs["down_bn"])
+    for j in range(5 if standalone else 0):
+        _conv_transpose2d(out, f"{pre}conv_decoder.{2 * j}", p[f"dec_{j}"])
 
 
 def _point_feat(out: dict, key: str, p: dict, s: dict) -> None:
@@ -104,27 +126,38 @@ def _point_feat(out: dict, key: str, p: dict, s: dict) -> None:
         _bn(out, f"{key}.bn{i + 1}", p[f"bn_{i}"], s[f"bn_{i}"])
 
 
-def _feat_head(out: dict, key: str, p: dict, s: dict) -> None:
-    _linear(out, f"{key}.fc1", p["fc1"])
-    _bn(out, f"{key}.bn1", p["bn1"], s["bn1"])
-    _linear(out, f"{key}.fc2", p["fc2"])
-    _bn(out, f"{key}.bn2", p["bn2"], s["bn2"])
-
-
-def _pointnet(out: dict, p: dict, s: dict) -> None:
-    stn_p, stn_s = p["feat"]["stn"], s["feat"]["stn"]
-    _point_feat(out, "pointnet.feat.stn", stn_p, stn_s)
+def _tnet(out: dict, key: str, p: dict, s: dict) -> None:
+    _point_feat(out, key, p, s)
     for i in range(2):
-        _linear(out, f"pointnet.feat.stn.fc{i + 1}", stn_p[f"fc_{i}"])
-        _bn(out, f"pointnet.feat.stn.bn{i + 4}", stn_p[f"fc_bn_{i}"], stn_s[f"fc_bn_{i}"])
-    _linear(out, "pointnet.feat.stn.fc3", stn_p["fc_out"])
-    _point_feat(out, "pointnet.feat", p["feat"], s["feat"])
-    _feat_head(out, "pointnet", p, s)
+        _linear(out, f"{key}.fc{i + 1}", p[f"fc_{i}"])
+        _bn(out, f"{key}.bn{i + 4}", p[f"fc_bn_{i}"], s[f"fc_bn_{i}"])
+    _linear(out, f"{key}.fc3", p["fc_out"])
 
 
-def _radarnet(out: dict, p: dict, s: dict) -> None:
-    _point_feat(out, "radarnet.feat", p["feat"], s["feat"])
-    _feat_head(out, "radarnet", p, s)
+def _feat_head(out: dict, pre: str, p: dict, s: dict, standalone: bool) -> None:
+    _linear(out, f"{pre}fc1", p["fc1"])
+    _bn(out, f"{pre}bn1", p["bn1"], s["bn1"])
+    _linear(out, f"{pre}fc2", p["fc2"])
+    _bn(out, f"{pre}bn2", p["bn2"], s["bn2"])
+    if standalone:
+        _linear(out, f"{pre}fc3", p["fc3"])
+
+
+def _pointnet(out: dict, p: dict, s: dict, pre: str = "pointnet.",
+              standalone: bool = False) -> None:
+    """``standalone``: ``fc3`` and (feature_transform=True) ``fstn`` too."""
+    _tnet(out, f"{pre}feat.stn", p["feat"]["stn"], s["feat"]["stn"])
+    if standalone and "fstn" in p["feat"]:
+        _tnet(out, f"{pre}feat.fstn", p["feat"]["fstn"], s["feat"]["fstn"])
+    _point_feat(out, f"{pre}feat", p["feat"], s["feat"])
+    _feat_head(out, pre, p, s, standalone)
+
+
+def _radarnet(out: dict, p: dict, s: dict, pre: str = "radarnet.",
+              standalone: bool = False) -> None:
+    """``standalone``: ``fc3`` too."""
+    _point_feat(out, f"{pre}feat", p["feat"], s["feat"])
+    _feat_head(out, pre, p, s, standalone)
 
 
 _MP_NAMES = {
@@ -210,10 +243,26 @@ def _to_bn(sd, key):
             {"mean": sd[f"{key}.running_mean"], "var": sd[f"{key}.running_var"]})
 
 
+def _to_conv_transpose2d(sd, key):
+    w = sd[f"{key}.weight"]  # [I, O, H, W]
+    return {"kernel": np.ascontiguousarray(w[:, :, ::-1, ::-1].transpose(2, 3, 0, 1)),
+            "bias": sd[f"{key}.bias"]}
+
+
 def _to_point_feat(sd, key, p, s):
     for i in range(3):
         p[f"mlp_{i}"] = _to_point_conv(sd, f"{key}.conv{i + 1}")
         p[f"bn_{i}"], s[f"bn_{i}"] = _to_bn(sd, f"{key}.bn{i + 1}")
+
+
+def _to_tnet(sd, key):
+    p, s = {}, {}
+    _to_point_feat(sd, key, p, s)
+    for i in range(2):
+        p[f"fc_{i}"] = _to_linear(sd, f"{key}.fc{i + 1}")
+        p[f"fc_bn_{i}"], s[f"fc_bn_{i}"] = _to_bn(sd, f"{key}.bn{i + 4}")
+    p["fc_out"] = _to_linear(sd, f"{key}.fc3")
+    return p, s
 
 
 def _to_feat_head(sd, p, s):
@@ -221,6 +270,8 @@ def _to_feat_head(sd, p, s):
     p["bn1"], s["bn1"] = _to_bn(sd, "bn1")
     p["fc2"] = _to_linear(sd, "fc2")
     p["bn2"], s["bn2"] = _to_bn(sd, "bn2")
+    if "fc3.weight" in sd:
+        p["fc3"] = _to_linear(sd, "fc3")
 
 
 def _to_resnet(sd, p, s):
@@ -234,16 +285,16 @@ def _to_resnet(sd, p, s):
         bp["down_conv"] = _to_conv2d(sd, f"{key}.downsample.0")
         bp["down_bn"], bs["down_bn"] = _to_bn(sd, f"{key}.downsample.1")
         p[f"block{i}"], s[f"block{i}"] = bp, bs
+    for j in range(5):
+        if f"conv_decoder.{2 * j}.weight" in sd:
+            p[f"dec_{j}"] = _to_conv_transpose2d(sd, f"conv_decoder.{2 * j}")
 
 
 def _to_pointnet(sd, p, s):
-    stn_p, stn_s = {}, {}
-    _to_point_feat(sd, "feat.stn", stn_p, stn_s)
-    for i in range(2):
-        stn_p[f"fc_{i}"] = _to_linear(sd, f"feat.stn.fc{i + 1}")
-        stn_p[f"fc_bn_{i}"], stn_s[f"fc_bn_{i}"] = _to_bn(sd, f"feat.stn.bn{i + 4}")
-    stn_p["fc_out"] = _to_linear(sd, "feat.stn.fc3")
+    stn_p, stn_s = _to_tnet(sd, "feat.stn")
     p["feat"], s["feat"] = {"stn": stn_p}, {"stn": stn_s}
+    if "feat.fstn.fc3.weight" in sd:
+        p["feat"]["fstn"], s["feat"]["fstn"] = _to_tnet(sd, "feat.fstn")
     _to_point_feat(sd, "feat", p["feat"], s["feat"])
     _to_feat_head(sd, p, s)
 
@@ -255,17 +306,53 @@ def _to_radarnet(sd, p, s):
 
 
 _TO_FLAX = {"resnet": _to_resnet, "pointnet": _to_pointnet, "radarnet": _to_radarnet}
+_FROM_FLAX = {"resnet": _resnet, "pointnet": _pointnet, "radarnet": _radarnet}
+_KINDS = ((ResNetAE, "resnet"), (PointNetClassifier, "pointnet"),
+          (RadarNetClassifier, "radarnet"))
 
 
-def encoder_variables(model: nn.Module, name: str) -> Dict[str, Any]:
-    """``{"params": ..., "batch_stats": ...}`` of the frozen encoder
-    ``name`` of a port ``MultimodalGNN`` in the JAX package's layout: the
-    leaves the GNN's flax tree holds under ``name`` (the ResNet without its
-    decoder, PointNet and RadarNet without their classification heads), as
-    numpy arrays."""
-    sd = {k: v.detach().cpu().numpy()
-          for k, v in getattr(model, name).state_dict().items()}
+def encoder_kind(model: nn.Module) -> str:
+    """'resnet', 'pointnet' or 'radarnet' for a standalone port encoder."""
+    for cls, kind in _KINDS:
+        if isinstance(model, cls):
+            return kind
+    raise ValueError(f"not an encoder model: {type(model).__name__}")
+
+
+def state_dict_to_encoder_variables(sd: Dict[str, Any], kind: str) -> Dict[str, Any]:
+    """``{"params", "batch_stats"}`` in the JAX package's layout of an
+    encoder's state dict (the port's names without a prefix, numpy or
+    torch values): the GNN's leaves, plus the decoder (``dec_0``..
+    ``dec_4``), ``fc3`` and ``fstn`` where the state dict has them."""
+    sd = {k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+          for k, v in sd.items()}
     params: Dict[str, Any] = {}
     stats: Dict[str, Any] = {}
-    _TO_FLAX[name](sd, params, stats)
+    _TO_FLAX[kind](sd, params, stats)
     return {"params": params, "batch_stats": stats}
+
+
+def encoder_variables(model: nn.Module, name: Optional[str] = None) -> Dict[str, Any]:
+    """``{"params": ..., "batch_stats": ...}`` in the JAX package's layout,
+    as numpy arrays: of the encoder ``name`` of a port ``MultimodalGNN``
+    (the leaves the GNN's flax tree holds under ``name``: the ResNet without
+    its decoder, PointNet and RadarNet without ``fc3``), or, with ``name``
+    None, of a standalone port encoder (the whole tree the JAX encoder
+    trainer holds)."""
+    if name is None:
+        return state_dict_to_encoder_variables(model.state_dict(), encoder_kind(model))
+    return state_dict_to_encoder_variables(getattr(model, name).state_dict(), name)
+
+
+def load_encoder_variables(model: nn.Module, variables: Dict[str, Any]) -> nn.Module:
+    """Load a JAX encoder tree (``{"params", "batch_stats"}``, as the JAX
+    encoder trainer holds it) into a standalone port encoder, strictly."""
+    out: Dict[str, np.ndarray] = {}
+    _FROM_FLAX[encoder_kind(model)](out, variables["params"], variables.get("batch_stats", {}),
+                                    "", standalone=True)
+    sd = {k: torch.tensor(v) for k, v in out.items()}
+    for key, buf in model.state_dict().items():
+        if key.endswith("num_batches_tracked"):
+            sd[key] = torch.zeros_like(buf)
+    model.load_state_dict(sd, strict=True)
+    return model

@@ -101,6 +101,22 @@ Phases, each fatal on failure:
      phase-3 encoders (in the JAX layout) into a fresh GNN, whose encodings
      are bit-identical. The flax msgpack decoder is tested on the CPU only:
      the smoke imports no JAX, so it cannot write such a file;
+  3h. encoder training at full width with the ``configs/clr.yaml`` batch
+     sizes (ResNet 32, PointNet 64 at 128 points, RadarNet 256 at 64): (a)
+     3 ``fit`` steps on fixed host batches on the card against the same
+     steps on the CPU from the same weights (dropout 0, lr 1e-4): losses
+     ``rtol=1e-4``, parameters within ``2·lr·steps``, running means within
+     that and variances ``rtol=1e-4``; (b) ``fit_device`` over synthetic
+     datasets (8,192 uint8 crops; 8,192 four-channel LiDAR clouds padded to
+     512; 16,384 radar vectors padded to 256; separable classes; counts
+     beyond ``num_points``) for 3 epochs with validation (the loss falls),
+     each epoch's ``.pt`` checkpoint read back equal, the device collate's
+     invariants on the card; (c) the three epoch checkpoints grafted into a
+     ``MultimodalGNN`` through ``merge_encoder_params``, its
+     ``encode_frozen`` bit-identical to the trainers' eval paths, one GNN
+     step with ``freeze_encoders=False`` moving the encoders and one with
+     the default leaving them; then a ``fit_device`` epoch each over its
+     validation set with at most one host wait (the epoch-end fetch);
   4. timing: each kernel and its plain version with CUDA events on real
      main-path batches (inference, and the training pair at (256, 4096) x8,
      the device time per call by sub-kernel of the inference forward, the
@@ -121,10 +137,17 @@ Phases, each fatal on failure:
      and from the in-memory one in turns (wall ms, training edges/s,
      device busy share), and each batcher's epoch assembled on the host
      alone and copied to the card alone; the streaming epoch cold (caches deleted) and
-     warm beside the ``EncodedGraphBatcher`` epoch, in turns.
+     warm beside the ``EncodedGraphBatcher`` epoch, in turns; (4f) per encoder, in
+     turns, a ``fit_device`` epoch and a ``fit`` epoch from host batches of the same
+     data, the first 2,048 items (RadarNet 4,096) of 3h's (PointNet and RadarNet
+     through ``lidar_batches``/``radar_batches`` over ``.npy`` files, ResNet from
+     in-memory uint8 batches: the card's machine has no PIL): wall ms and items/s;
+     8 steps of each profiled: the device's busy share, kernels per step, Adam's
+     device ms, the top device rows and the host events.
 
-Prints the card's name and power limit, a ``{"kernels": [...]}`` line and,
-last, ``{"ok": true, "device": {...}}``. Exits non-zero, without the last
+Prints an ``{"encoders": [...]}`` line (4f's timings and 3h's checks),
+the card's name and power limit, a ``{"kernels": [...]}`` line and, last,
+``{"ok": true, "device": {...}}``. Exits non-zero, without the last
 line, when there is no CUDA device or any phase fails. The AMOTA and AP it
 prints come from random or barely trained weights.
 """
@@ -135,6 +158,7 @@ import contextlib
 import copy
 import dataclasses
 import io
+import itertools
 import json
 import subprocess
 import sys
@@ -417,10 +441,12 @@ def plain_training():
         fmt.fused_mp_train_scores = kernels
 
 
-def profile_device(run):
+def profile_device(run, host_rows=None):
     """Wall ms, device-busy ms and the device rows (ms, name, count) of one
     call of ``run`` under torch.profiler, started ``TRACE_LEAD_S`` into the
-    trace (whose first milliseconds' records the profiler can drop)."""
+    trace (whose first milliseconds' records the profiler can drop). A list
+    passed as ``host_rows`` receives the host events' rows (self CPU ms,
+    name, count), the largest first."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -440,6 +466,10 @@ def profile_device(run):
                    for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA
                    and not getattr(ev, "is_user_annotation", False)),
                   reverse=True)
+    if host_rows is not None:
+        host_rows.extend(sorted(((ev.self_cpu_time_total / 1e3, ev.key, ev.count)
+                                 for ev in prof.key_averages()
+                                 if ev.device_type == DeviceType.CPU), reverse=True))
     return wall_ms, sum(r[0] for r in rows) / 1e3, rows
 
 
@@ -840,6 +870,436 @@ def max_avg_diff(got, want, rtol=RTOL, atol=ATOL):
         assert diff <= rtol * abs(v) + atol, (key, got[key], v)
         worst = max(worst, diff)
     return worst
+
+
+# ---- encoder training (phases 3h and 4f) ----------------------------------
+
+ENCODERS = ("resnet", "pointnet", "radarnet")
+# synthetic encoder datasets: items per encoder and per validation set
+ENC_ITEMS = {"resnet": 8192, "pointnet": 8192, "radarnet": 16384}
+ENC_VAL_ITEMS = 1024
+# 4f times both forms on the first items of each dataset (items/s does not
+# depend on the count; the host loaders take ~1.5 ms per cloud on the
+# card's machine)
+ENC_TIME_ITEMS = {"resnet": 2048, "pointnet": 2048, "radarnet": 4096}
+ENC_PROFILE_STEPS = 8
+# the channels of a LiDAR annotation cloud as the JAX package's
+# preprocess_lidar_annotations writes it: x, y, z, intensity (its
+# data/modality.py::load_lidar_bin keeps 4 of the 5 stored rows)
+LIDAR_CHANNELS = 4
+# radar annotation clouds hold 18 rows; the loaders take [0, 1, 8, 9]
+RADAR_ROWS = 18
+# 3h (a), the card against the CPU: Adam turns float32 noise into whole
+# steps of about lr (a bias right before a batch norm has an analytically
+# zero gradient in train mode; PointNet's T-Net gets its first gradients,
+# at noise level, only once its zero-initialised fc3 has moved; cuDNN's
+# noise differs from the CPU's), and those steps move the next steps'
+# activations. The comparison runs at a learning rate where three steps
+# stay within the loss tolerance, and holds the running statistics after
+# the first step, whose forward ran on the same weights
+ENC_CMP_LR = 1e-4
+ENC_CMP_STEPS = 3
+
+
+def encoder_configs():
+    """configs/clr.yaml's encoder settings: (config, num_points) per
+    encoder (ResNet batch 32, PointNet 64 at 128 points, RadarNet 256 at 64
+    points)."""
+    from batch3dmot_tpu_torch.config import PointNetConfig, RadarNetConfig, ResNetConfig
+
+    return {"resnet": (ResNetConfig(), None),
+            "pointnet": (PointNetConfig(), PointNetConfig().num_points),
+            "radarnet": (RadarNetConfig(), RadarNetConfig().num_points)}
+
+
+def encoder_datasets(rng, items, num_lidar=128, num_radar=64):
+    """Synthetic stacked datasets in the layout of ``data/preprocess.
+    materialize_*_dataset``: smooth uint8 crops (random low-frequency
+    sinusoids per channel) with labels; LiDAR clouds [N, 4, 4 x num_lidar]
+    and radar 4-vectors [N, 4, 4 x num_radar], zero beyond counts drawn
+    from [16, Kcap] and [2, Kcap] (many longer than num_points), with
+    separable classes: a LiDAR cloud of class k spreads (k + 1) / 7 as far
+    along y as along x and 0.1 + 0.1 k along z; a radar point of class k
+    moves at (k - 3) / 2 along x and (3 - k) / 4 along y."""
+    out = {}
+    n = items["resnet"]
+    grid = np.arange(32, dtype=np.float32)
+    f = rng.uniform(0.0, 0.4, (n, 2, 3)).astype(np.float32)
+    phase = rng.uniform(0, 2 * np.pi, (n, 1, 1, 3)).astype(np.float32)
+    wave = np.sin(grid[None, :, None, None] * f[:, None, None, 0]
+                  + grid[None, None, :, None] * f[:, None, None, 1] + phase)
+    amp = rng.uniform(40, 120, (n, 1, 1, 3))
+    out["resnet"] = (np.clip(128 + amp * wave, 0, 255).astype(np.uint8),
+                     rng.integers(0, 7, n).astype(np.int32))
+
+    n, kcap = items["pointnet"], 4 * num_lidar
+    labels = rng.integers(0, 7, n).astype(np.int32)
+    counts = rng.integers(16, kcap + 1, n).astype(np.int32)
+    spread = np.stack([np.ones(n), (labels + 1) / 7, 0.1 + 0.1 * labels, np.full(n, 0.5)], 1)
+    clouds = rng.normal(size=(n, LIDAR_CHANNELS, kcap)).astype(np.float32)
+    clouds *= spread[:, :, None].astype(np.float32)
+    clouds *= (np.arange(kcap) < counts[:, None])[:, None, :]
+    out["pointnet"] = (clouds, counts, labels)
+
+    n, kcap = items["radarnet"], 4 * num_radar
+    labels = rng.integers(0, 7, n).astype(np.int32)
+    counts = rng.integers(2, kcap + 1, n).astype(np.int32)
+    vecs = rng.normal(0, 0.3, (n, 4, kcap)).astype(np.float32)
+    vecs[:, 2] += ((labels - 3) / 2)[:, None]
+    vecs[:, 3] += ((3 - labels) / 4)[:, None]
+    vecs *= (np.arange(kcap) < counts[:, None])[:, None, :]
+    out["radarnet"] = (vecs, counts, labels)
+    return out
+
+
+def encoder_trainer(name, cfg, device=None, dropout=None):
+    """The encoder's trainer through its make_* entry point; ``dropout``
+    sets the classifiers' rate (None keeps 0.3)."""
+    from batch3dmot_tpu_torch.train import encoders as enc_train
+
+    make = {"resnet": enc_train.make_resnet_trainer,
+            "pointnet": enc_train.make_pointnet_trainer,
+            "radarnet": enc_train.make_radarnet_trainer}[name]
+    trainer = make(cfg, device=device)
+    if dropout is not None and name != "resnet":
+        trainer.model.dropout = dropout
+    return trainer
+
+
+def encoder_transform(name, num_points):
+    from batch3dmot_tpu_torch.train import encoders as enc_train
+
+    if name == "resnet":
+        return enc_train.image_transform()
+    if name == "pointnet":
+        return enc_train.lidar_transform(num_points=num_points)
+    return enc_train.radar_transform(num_points=num_points)
+
+
+def fixed_host_batches(name, data, num_points, bsz, count):
+    """``count`` fixed host batches of the dataset's first rows, in the
+    model's input layout: crops / 255, the first num_points columns of each
+    cloud (LiDAR: its xyz rows)."""
+    out = []
+    for i in range(count):
+        rows = slice(i * bsz, (i + 1) * bsz)
+        if name == "resnet":
+            out.append((data[0][rows].astype(np.float32) / 255.0, data[1][rows]))
+        else:
+            x = data[0][rows, : 3 if name == "pointnet" else 4, :num_points]
+            out.append((np.ascontiguousarray(x.transpose(0, 2, 1)), data[2][rows]))
+    return out
+
+
+def stats_close(got, want, where=""):
+    """Running statistics of two JAX-layout trees at rtol 1e-4 (atol 1e-6);
+    returns the share of that tolerance used (at most 1)."""
+    if isinstance(want, dict):
+        return max(stats_close(got[k], want[k], f"{where}/{k}") for k in want)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-6, err_msg=where)
+    return tolerance_used(got, want)
+
+
+def tolerance_used(a, b):
+    """Largest |a - b| / (1e-6 + 1e-4 |b|) over two trees: at most 1 where
+    they agree to rtol 1e-4, atol 1e-6."""
+    if isinstance(a, dict):
+        return max(tolerance_used(a[k], b[k]) for k in a)
+    return float(np.max(np.abs(a - b) / (1e-6 + 1e-4 * np.abs(b))))
+
+
+def tree_max_diff(a, b):
+    if isinstance(a, dict):
+        return max(tree_max_diff(a[k], b[k]) for k in a)
+    return float(np.max(np.abs(a - b)))
+
+
+def collate_invariants(trainer, data, num_points, rows=256):
+    """The device collate on the card, on a radar dataset's first rows:
+    every taken column is one of the cloud's valid columns, the columns of
+    a cloud longer than num_points are distinct, zeros beyond the count.
+    Returns (rows checked, rows longer than num_points)."""
+    import torch
+
+    from batch3dmot_tpu_torch.train.encoders import _collate
+
+    pts = torch.from_numpy(data[0][:rows]).to(trainer.device)
+    counts = torch.from_numpy(data[1][:rows]).to(trainer.device)
+    out = _collate(trainer.generator, pts, counts, num_points).cpu().numpy()
+    pts, counts = pts.cpu().numpy(), counts.cpu().numpy()
+    longer = 0
+    for i, c in enumerate(counts):
+        m = min(int(c), num_points)
+        valid = {tuple(v) for v in pts[i, :, :c].T.tolist()}
+        taken = [tuple(v) for v in out[i, :, :m].T.tolist()]
+        assert set(taken) <= valid and len(set(taken)) == m, (i, c)
+        assert not out[i, :, m:].any(), (i, c)
+        longer += int(c > num_points)
+    assert longer > 0
+    return rows, longer
+
+
+def write_npy_clouds(name, data, npy_dir):
+    """The dataset's clouds as per-annotation .npy files and entries, as the
+    JAX package's preprocess writes them (LiDAR [4, count]; radar
+    [18, count] with the 4-vector in rows 0, 1, 8, 9)."""
+    entries = []
+    key = "num_lidar_pts" if name == "pointnet" else "num_radar_pts"
+    cats = ("vehicle.car", "vehicle.truck", "vehicle.bus.rigid", "vehicle.trailer",
+            "human.pedestrian.adult", "vehicle.motorcycle", "vehicle.bicycle")
+    for i, (c, label) in enumerate(zip(data[1], data[2])):
+        if name == "pointnet":
+            arr = data[0][i, :, :c]
+        else:
+            arr = np.zeros((RADAR_ROWS, c), np.float32)
+            arr[[0, 1, 8, 9]] = data[0][i, :, :c]
+        tok = f"{name}{i:06d}"
+        np.save(f"{npy_dir}/{tok}.npy", arr)
+        entries.append({"sample_annotation_token": tok, "category_name": cats[label],
+                        key: int(c), "ann_ego_radius": 10.0})
+    return entries
+
+
+def train_encoders(clr, all_windows):
+    """Phase 3h: the three encoders at full width with the configs/clr.yaml
+    batch sizes: (a) 3 fit steps on the card against the same steps on the
+    CPU; (b) fit_device over synthetic datasets for 3 epochs with
+    validation, the epoch checkpoints read back, the device collate's
+    invariants; (c) the checkpoints grafted into a MultimodalGNN, one GNN
+    step with trainable encoders and one with frozen ones; one more
+    fit_device epoch each (over the validation set) counted for host waits.
+    Returns what 4f times."""
+    import torch
+
+    from batch3dmot_tpu_torch.config import GNNConfig
+    from batch3dmot_tpu_torch.models import init_params_, make_model
+    from batch3dmot_tpu_torch.train.data import GraphBatcher
+    from batch3dmot_tpu_torch.train.trainer import GNNTrainer
+    from batch3dmot_tpu_torch.utils.checkpoint import load_checkpoint, merge_encoder_params
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    enc_cfgs = encoder_configs()
+    rng = np.random.default_rng(21)
+    enc_data = encoder_datasets(rng, ENC_ITEMS)
+    enc_val = encoder_datasets(rng, {k: ENC_VAL_ITEMS for k in ENCODERS})
+    enc_report = {name: {} for name in ENCODERS}
+    for name in ENCODERS:
+        cfg, num_points = enc_cfgs[name]
+        cmp_cfg = dataclasses.replace(cfg, lr=ENC_CMP_LR)
+        batches = fixed_host_batches(name, enc_data[name], num_points, cfg.batch_size,
+                                     ENC_CMP_STEPS)
+        t_card = encoder_trainer(name, cmp_cfg, dropout=0.0)
+        t_cpu = encoder_trainer(name, cmp_cfg, device="cpu", dropout=0.0)
+        assert tree_max_diff(t_card.variables, t_cpu.variables) == 0.0
+        l_card, l_cpu = [], []
+        for step, b in enumerate(batches):
+            for t, losses in ((t_card, l_card), (t_cpu, l_cpu)):
+                (h,) = t.fit(lambda: iter([b]), epochs=1, verbose=False)
+                losses.append(h["train/loss"])
+            if step == 0:
+                # the first step's forward ran on the same weights
+                stats_1 = stats_close(t_card.variables["batch_stats"],
+                                      t_cpu.variables["batch_stats"])
+        assert np.all(np.isfinite(l_card)), (name, l_card)
+        np.testing.assert_allclose(l_card, l_cpu, rtol=1e-4)
+        p_bound = 2 * ENC_CMP_LR * ENC_CMP_STEPS + 1e-6
+        v_card, v_cpu = t_card.variables, t_cpu.variables
+        p_diff = tree_max_diff(v_card["params"], v_cpu["params"])
+        assert p_diff <= p_bound, (name, p_diff, p_bound)
+        stats_3 = tolerance_used(v_card["batch_stats"], v_cpu["batch_stats"])
+        enc_report[name]["card_vs_cpu"] = dict(
+            losses=l_card, cpu_losses=l_cpu, max_rel_loss=max_rel_diff(l_card, l_cpu),
+            max_param_diff=p_diff, param_bound=p_bound, stats_tolerance_used_step1=stats_1,
+            stats_tolerance_used_step3=stats_3)
+        log(f"encoder {name} card vs CPU: 3 fit steps of batch {cfg.batch_size}"
+            + (f" at {num_points} points" if num_points else "") + f" (lr {ENC_CMP_LR}, "
+            f"dropout 0): losses {[f'{v:.6f}' for v in l_card]} vs "
+            f"{[f'{v:.6f}' for v in l_cpu]} (max rel {max_rel_diff(l_card, l_cpu):.2e}); "
+            f"parameters within {p_diff:.2e} (bound {p_bound:.1e}); running statistics after "
+            f"the first step use {stats_1:.3f} of rtol 1e-4 + atol 1e-6 (after 3 steps "
+            f"{stats_3:.3f}, not held)")
+        del t_card, t_cpu
+
+    enc_tmp = tempfile.TemporaryDirectory()
+    trained, ckpts = {}, {}
+    for name in ENCODERS:
+        cfg, num_points = enc_cfgs[name]
+        t = encoder_trainer(name, cfg)
+        transform = encoder_transform(name, num_points)
+        t0 = time.perf_counter()
+        hist = t.fit_device(enc_data[name], transform=transform, val_dataset=enc_val[name],
+                            epochs=3, verbose=False, log_dir=enc_tmp.name, prefix=name)
+        fit_s = time.perf_counter() - t0
+        losses = [h["train/loss"] for h in hist]
+        assert losses[-1] < losses[0], (name, losses)
+        assert all(np.isfinite(h["val/loss"]) for h in hist), hist
+        (ckpts[name],) = Path(enc_tmp.name).glob(f"{name}_epoch2_loss*.pt")
+        saved = load_checkpoint(str(ckpts[name]))
+        for (k, v), w in zip(t.model.state_dict().items(), saved.values(), strict=True):
+            assert torch.equal(v.cpu(), w), (name, k)
+        trained[name] = t
+        steps = len(enc_data[name][0]) // cfg.batch_size
+        metric = "mse" if name == "resnet" else "accuracy"
+        enc_report[name].update(fit_device=dict(
+            items=len(enc_data[name][0]), steps_per_epoch=steps, epochs=3, seconds=fit_s,
+            train_loss=losses, val_loss=[h["val/loss"] for h in hist],
+            **{f"val_{metric}": [h[f"val/{metric}"] for h in hist]}))
+        log(f"encoder {name} fit_device: {len(enc_data[name][0])} items, 3 epochs of {steps} "
+            f"steps with validation ({ENC_VAL_ITEMS} items) in {fit_s:.2f} s; train loss "
+            + " -> ".join(f"{v:.4f}" for v in losses) + f"; val {metric} "
+            + " -> ".join(f"{h[f'val/{metric}']:.4f}" for h in hist)
+            + f"; checkpoint {ckpts[name].name} reads back equal")
+    rows, longer = collate_invariants(trained["radarnet"], enc_data["radarnet"],
+                                      enc_cfgs["radarnet"][1])
+    log(f"device collate on the card: {rows} radar rows ({longer} longer than "
+        f"{enc_cfgs['radarnet'][1]} points): taken columns distinct and valid, zeros beyond "
+        "the count")
+
+    # (c) the three trained encoders grafted from their .pt checkpoints; the
+    # GNN's encodings bit-identical to the trainers' models' eval paths on
+    # the same rows; one GNN step with trainable encoders moves them, one
+    # with the default frozen ones does not
+    graft = init_params_(make_model("mm"), torch.Generator().manual_seed(5)).to(dev)
+    merge_encoder_params(graft, **{n: str(p) for n, p in ckpts.items()})
+    rows = slice(0, 512)
+    with torch.inference_mode():
+        img = torch.from_numpy(enc_data["resnet"][0][rows]).to(dev)
+        pts, _ = encoder_transform("pointnet", 128)(
+            torch.Generator(device=dev).manual_seed(0),
+            tuple(torch.from_numpy(a[rows]).to(dev) for a in enc_data["pointnet"]), False)
+        vec, _ = encoder_transform("radarnet", 64)(
+            torch.Generator(device=dev).manual_seed(0),
+            tuple(torch.from_numpy(a[rows]).to(dev) for a in enc_data["radarnet"]), False)
+        got = graft.encode_frozen(img, pts, vec)
+        want = (trained["resnet"].model.encode(img), trained["pointnet"].model.feat_256(pts),
+                trained["radarnet"].model.feat_256(vec))
+    for g, w, n in zip(got, want, ENCODERS, strict=True):
+        assert torch.equal(g, w), n
+    raw_b = next(GraphBatcher(all_windows, 2, seed=3, uniform=True).epoch())
+    graft_sd = {k: v.clone() for k, v in graft.state_dict().items()}
+    moved = {}
+    for freeze in (False, True):
+        t_g = GNNTrainer(make_model("mm", freeze_encoders=freeze), GNNConfig(**clr),
+                         init_state_dict=graft_sd)
+        loss, _ = t_g.train_step(raw_b)
+        assert np.isfinite(float(loss))
+        after = t_g.model.state_dict()
+        moved[freeze] = sorted({k.split(".")[0] for k, v in after.items()
+                                if k.split(".")[0] in ENCODERS and not torch.equal(v, graft_sd[k])})
+        del t_g
+    assert moved[False] == sorted(ENCODERS) and moved[True] == [], moved
+    syncs = {}
+    for name in ENCODERS:
+        cfg, num_points = enc_cfgs[name]
+        syncs[name] = count_syncs(lambda: trained[name].fit_device(
+            enc_val[name], transform=encoder_transform(name, num_points), epochs=1,
+            verbose=False))
+        assert syncs[name] <= 1, (name, syncs)
+        enc_report[name]["host_waits_per_epoch"] = syncs[name]
+    phase_3h_s = time.perf_counter() - t_phase
+    log(f"grafting: the three trained encoders from their .pt checkpoints into a MultimodalGNN "
+        f"through merge_encoder_params: encode_frozen bit-identical to the trainers' eval "
+        f"paths on {rows.stop} rows; one GNN step (raw window batch) with freeze_encoders=False "
+        f"moves {moved[False]}, the default moves none; host waits per fit_device epoch "
+        f"({ENC_VAL_ITEMS} items) {syncs}; phase 3h {phase_3h_s:.1f} s")
+
+    return dict(cfgs=enc_cfgs, data=enc_data, report=enc_report, trained=trained,
+                tmp=enc_tmp)
+
+
+def time_encoders(card, enc):
+    """Phase 4f: per encoder, in turns device/host/host/device, a fit_device
+    epoch over the first ENC_TIME_ITEMS items of the 3h dataset (wall ms of
+    the epoch, items/s) and a fit epoch from host batches of the same items
+    (PointNet and RadarNet through lidar_batches / radar_batches over .npy
+    files, ResNet from in-memory uint8 batches: the card's machine has no
+    PIL to decode crops); then ENC_PROFILE_STEPS steps of each form under
+    the profiler (device busy share, kernels per step, top device rows, and
+    the host events of the fit_device steps by self time). Returns the rows
+    of the encoders line."""
+    from batch3dmot_tpu_torch.data.preprocess import lidar_batches, radar_batches
+
+    enc_cfgs, enc_data, enc_report, trained = enc["cfgs"], enc["data"], enc["report"], enc["trained"]
+    t_phase = time.perf_counter()
+    npy_tmp = tempfile.TemporaryDirectory()
+    enc_timing = []
+    for name in ENCODERS:
+        cfg, num_points = enc_cfgs[name]
+        t = trained[name]
+        data = tuple(a[:ENC_TIME_ITEMS[name]] for a in enc_data[name])
+        bsz = cfg.batch_size
+        n_items = (len(data[0]) // bsz) * bsz
+        transform = encoder_transform(name, num_points)
+        if name == "resnet":
+            perm = np.random.default_rng(0)
+
+            def host_epoch(imgs=data[0], labels=data[1]):
+                order = perm.permutation(len(imgs))
+                return ((imgs[order[i:i + bsz]], labels[order[i:i + bsz]])
+                        for i in range(0, n_items, bsz))
+        else:
+            t0 = time.perf_counter()
+            entries = write_npy_clouds(name, data, npy_tmp.name)
+            write_s = time.perf_counter() - t0
+            loader_rng = np.random.default_rng(0)
+            if name == "pointnet":
+                host_epoch = lambda e=entries: lidar_batches(  # noqa: E731
+                    npy_tmp.name, e, bsz, num_points=num_points, augment=True, rng=loader_rng)
+            else:
+                host_epoch = lambda e=entries: radar_batches(  # noqa: E731
+                    npy_tmp.name, e, bsz, num_points=num_points, rng=loader_rng)
+        dev_run = lambda: t.fit_device(data, transform=transform, epochs=1,  # noqa: E731
+                                       verbose=False)
+        host_run = lambda: t.fit(host_epoch, epochs=1, verbose=False)  # noqa: E731
+        turns = [run()[0]["epoch_time_s"] * 1e3 for run in (dev_run, host_run, host_run, dev_run)]
+        dev_ms, host_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+        # the profiles cover ENC_PROFILE_STEPS steps of each form (the
+        # profiler's own cost grows with the events it records)
+        k_items = ENC_PROFILE_STEPS * bsz
+        host_rows = []
+        prof_dev = profile_device(lambda: t.fit_device(
+            tuple(a[:k_items] for a in data), transform=transform, epochs=1, verbose=False),
+            host_rows)
+        prof_host = profile_device(lambda: t.fit(
+            lambda: itertools.islice(host_epoch(), ENC_PROFILE_STEPS), epochs=1, verbose=False))
+        top = [(round(us / 1e3, 3), key[:80], count) for us, key, count in prof_dev[2][:8]]
+        adam_ms = sum(us for us, key, _ in prof_dev[2] if "adam" in key.lower()) / 1e3
+        steps = n_items // bsz
+        kernels_per_step = sum(count for _, _, count in prof_dev[2]) / ENC_PROFILE_STEPS
+        host_top = [(round(ms, 3), key[:60], count) for ms, key, count in host_rows[:8]]
+        host_total = sum(r[0] for r in host_rows)
+        row = dict(
+            name=name, batch=bsz, num_points=num_points, items=n_items, steps=steps,
+            fit_device_epoch_ms=dev_ms, fit_device_items_per_s=n_items / (dev_ms / 1e3),
+            fit_device_busy=prof_dev[1] / prof_dev[0], fit_device_device_ms=prof_dev[1],
+            fit_epoch_ms=host_ms, fit_items_per_s=n_items / (host_ms / 1e3),
+            fit_busy=prof_host[1] / prof_host[0],
+            adam_device_ms_per_step=adam_ms / ENC_PROFILE_STEPS,
+            kernels_per_step=kernels_per_step, turns_ms=turns, top_device_rows=top,
+            host_ops_ms=host_total, top_host_rows=host_top,
+            **({} if name == "resnet" else dict(npy_write_s=write_s)),
+            **enc_report[name])
+        enc_timing.append(row)
+        log(f"timing encoder {name} ({steps} steps of batch {bsz}; {card}): fit_device epoch "
+            f"{dev_ms:.2f} ms, {row['fit_device_items_per_s']:.0f} items/s, device busy "
+            f"{100 * row['fit_device_busy']:.1f}% ({prof_dev[1]:.2f} ms of {prof_dev[0]:.2f}), "
+            f"{kernels_per_step:.1f} kernels per step; fit from host batches {host_ms:.2f} ms, "
+            f"{row['fit_items_per_s']:.0f} items/s, device busy {100 * row['fit_busy']:.1f}%"
+            + ("" if name == "resnet" else f" ({n_items} .npy files written in {write_s:.2f} s)")
+            + f"; Adam {adam_ms / ENC_PROFILE_STEPS:.3f} ms per step (turns device/host/host/device "
+            + "/".join(f"{v:.2f}" for v in turns) + " ms)")
+        for ms, key, count in top:
+            log(f"  {ms:9.3f} ms  x{count:<5d} {key}")
+        log(f"  host events of the profiled {ENC_PROFILE_STEPS} fit_device steps, self CPU "
+            f"{host_total:.1f} ms:")
+        for ms, key, count in host_top:
+            log(f"  {ms:9.3f} ms  x{count:<5d} {key}")
+    npy_tmp.cleanup()
+    enc["tmp"].cleanup()
+    log(f"phase 4f {time.perf_counter() - t_phase:.1f} s")
+    return enc_timing
+
 
 
 def main() -> int:
@@ -1943,6 +2403,9 @@ def main() -> int:
         f"bit-identical, same digest; phase 3g {phase_3g_s:.1f} s (the flax msgpack decoder "
         "is held to flax on the CPU only: the smoke imports no JAX to write a file)")
 
+    # ---- 3h. encoder training -------------------------------------------
+    enc = train_encoders(clr, all_windows)
+
     # ---- 4. timing -----------------------------------------------------
     # the first full batch of the (256, 4096) bucket, with the inputs the
     # main path gives the kernel (kept from one more run); plain and kernel
@@ -2434,6 +2897,9 @@ def main() -> int:
     del t_s, t_form, t_ps, t_pm
     store_tmp.cleanup()
 
+    # ---- 4f. encoder training timing ---------------------------------------
+    enc_timing = time_encoders(card, enc)
+
     kernels = [dict(
         name="fused_mp", route="cuda",
         source="batch3dmot_tpu_torch/csrc/fused_mp.cu",
@@ -2483,6 +2949,7 @@ def main() -> int:
         store_path=dict(launches=0),
     ))
     log(f"total {time.perf_counter() - t_start:.1f} s")
+    log(json.dumps({"encoders": enc_timing, "card": card}))
     log(f"card: {card}")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

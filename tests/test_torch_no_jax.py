@@ -1,12 +1,14 @@
-"""Import hygiene of the PyTorch port: it imports no JAX, no flax and
-nothing of ``batch3dmot_tpu``, it imports, scores (the encode-once scorer,
-from precomputed encodings, and the device pipeline), takes a training step
-and runs device-resident and K-step epochs without ``nvcc`` or a GPU (in
-both kNN-conv modes), trains from .b3d stores (the native loader built
-with g++, the numpy fallback, per-scene encoding caches and the streaming
-batcher, a metric writer), decodes a flax msgpack file, and its
-default-device entry points (scorers, the device pipeline and builder,
-trainer, the encoding cache) refuse to run on the CPU unless asked to."""
+"""Import hygiene of the PyTorch port: it imports no JAX, no flax, no optax,
+no msgpack and nothing of ``batch3dmot_tpu``, it imports, scores (the
+encode-once scorer, from precomputed encodings, and the device pipeline),
+takes a training step and runs device-resident and K-step epochs without
+``nvcc`` or a GPU (in both kNN-conv modes), trains from .b3d stores (the
+native loader built with g++, the numpy fallback, per-scene encoding caches
+and the streaming batcher, a metric writer), decodes a flax msgpack file,
+trains the three encoders from their loaders and stacked datasets and
+grafts one into a GNN, and its default-device entry points (scorers, the
+device pipeline and its window construction, the trainers, the encoding
+cache) refuse to run on the CPU unless asked to."""
 
 import os
 import subprocess
@@ -166,9 +168,49 @@ SCRIPT = textwrap.dedent(
     else:
         raise AssertionError("scene_encodings_cached ran without a GPU")
 
+    # encoder training: the loaders and stacked datasets over .npy files, the
+    # three trainers through fit and fit_device, an epoch checkpoint grafted
+    from batch3dmot_tpu_torch.config import EncoderTrainConfig
+    from batch3dmot_tpu_torch.data import modality, preprocess
+    from batch3dmot_tpu_torch.train import encoders as enc_train
+    from batch3dmot_tpu_torch.utils.checkpoint import merge_encoder_params
+
+    rng = np.random.default_rng(0)
+    entries = []
+    for i in range(8):
+        np.save(os.path.join(tmp, f"a{i}.npy"), rng.normal(size=(18, 20)).astype(np.float32))
+        entries.append({"sample_annotation_token": f"a{i}", "category_name": "vehicle.car",
+                        "num_lidar_pts": 20, "num_radar_pts": 20, "ann_ego_radius": 9.0})
+    assert modality.reference_normalize(np.ones((3, 2))).shape == (3, 2)
+    ecfg = EncoderTrainConfig(batch_size=4)
+    lidar = list(preprocess.lidar_batches(tmp, entries, 4, num_points=16, augment=True))
+    radar = list(preprocess.radar_batches(tmp, entries, 4, num_points=16))
+    pn = enc_train.make_pointnet_trainer(ecfg, device="cpu")
+    rn = enc_train.make_radarnet_trainer(ecfg, device="cpu")
+    (hist,) = pn.fit(lambda: iter(lidar), epochs=1, verbose=False, log_dir=tmp, prefix="pn")
+    assert np.isfinite(hist["train/nll"])
+    (hist,) = rn.fit_device(preprocess.materialize_radar_dataset(tmp, entries, num_points=16),
+                            transform=enc_train.radar_transform(16), epochs=1, verbose=False)
+    (hist,) = pn.fit_device(preprocess.materialize_lidar_dataset(tmp, entries, num_points=16),
+                            transform=enc_train.lidar_transform(16), epochs=1, verbose=False)
+    rs = enc_train.make_resnet_trainer(ecfg, device="cpu")
+    imgs = (rng.random((8, 32, 32, 3)) * 255).astype(np.uint8)
+    (hist,) = rs.fit_device((imgs, np.zeros(8, np.int32)),
+                            transform=enc_train.image_transform(), epochs=1, verbose=False)
+    assert np.isfinite(hist["train/mse"])
+    pt = [os.path.join(tmp, f) for f in os.listdir(tmp) if f.startswith("pn_epoch0_")
+          and f.endswith(".pt")]
+    merge_encoder_params(make_model("mm", depth=1), pointnet=pt[0], radarnet=rn.variables)
+    try:
+        enc_train.make_radarnet_trainer(ecfg)
+    except RuntimeError as err:
+        assert "device='cpu'" in str(err)
+    else:
+        raise AssertionError("EncoderTrainer ran without a GPU")
+
     bad = sorted(m for m in sys.modules
-                 if m in ("jax", "flax", "msgpack", "batch3dmot_tpu")
-                 or m.startswith(("jax.", "flax.", "msgpack.", "batch3dmot_tpu.")))
+                 if m in ("jax", "flax", "optax", "msgpack", "batch3dmot_tpu")
+                 or m.startswith(("jax.", "flax.", "optax.", "msgpack.", "batch3dmot_tpu.")))
     assert not bad, bad
     print("ok", len(avg))
     """
