@@ -24,10 +24,19 @@ Shapes are quantized as in the JAX package (``m_pad`` multiples of 256,
 group of scenes shares one window grid. PyTorch runs eagerly, so there is
 no compiled-program cache: dispatching enqueues the scene's device work
 and returns without waiting for the card.
+
+With ``mesh=`` (``parallel.make_mesh``; every rank makes the same calls), as
+the JAX package's ``shard_map`` forms: a scene's window grid (its count
+padded to a multiple of ``lcm(8, N)``) and its encoder rows are split over
+the ranks, the encodings and the window scores are all-gathered, each rank
+averages its share of the destination detections and the averages are
+all-gathered; a group splits whole scenes, padded to a multiple of N with
+empty scenes. Every rank returns every scene's result.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -40,6 +49,7 @@ from batch3dmot_tpu_torch.graph import IMG_SHAPE, LIDAR_SHAPE, RADAR_SHAPE, Padd
 from batch3dmot_tpu_torch.graphs.build_device import build_windows_device
 from batch3dmot_tpu_torch.models.gnn import MultimodalGNN
 from batch3dmot_tpu_torch.ops.fused_mp import COVER, fused_scores_from_encodings
+from batch3dmot_tpu_torch.parallel.mesh import all_gather_rows, all_gather_tuple, replicate
 
 # Per-scene device work (window grid x nodes x edge slots = W*N*E) at and
 # above which a group is dispatched scene by scene. The value is the JAX
@@ -62,6 +72,8 @@ def device_average_scores(
     window_starts: torch.Tensor,  # [W] int (parked entries >= 2**20)
     *,
     window_len: int,
+    d_base: int = 0,
+    m_out: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Cross-window averaging of duplicate edge scores on the device.
 
@@ -73,10 +85,12 @@ def device_average_scores(
     run's mean from cumulative sums (the JAX package's formula, its prefix
     sums in float64, so a mean is its float64 value rounded once). Returns
     (src [M, R] int32, -1 on empty or duplicate slots; mean [M, R] f32, 0
-    there); the destination is the row."""
+    there); the destination is the row. ``d_base``/``m_out`` select the
+    destinations ``d_base .. d_base + m_out`` (a rank's share on a mesh;
+    rows past M are empty)."""
     w_count, n, k = scores_wnk.shape
     L = window_len
-    m = frame_idx.shape[0]
+    m_all = frame_idx.shape[0]
     R = (L - 1) * k
     dev = scores_wnk.device
     frame_idx = frame_idx.to(torch.int32)
@@ -84,11 +98,15 @@ def device_average_scores(
     big_frame = torch.where(det_mask, frame_idx, _SENTINEL).contiguous()
     lo_all = torch.searchsorted(big_frame, starts)
 
-    d = torch.arange(m, device=dev)
+    m = m_all if m_out is None else m_out
+    d = d_base + torch.arange(m, device=dev)
+    d_c = d.clamp(max=m_all - 1)
+    frame_d = frame_idx[d_c].long()
+    live_d = det_mask[d_c] & (d < m_all)
     # windows holding edges into d: starts frame(d)-L+1 .. frame(d)-1
-    s = frame_idx.long()[:, None] - (L - 1) + torch.arange(L - 1, device=dev)[None, :]
+    s = frame_d[:, None] - (L - 1) + torch.arange(L - 1, device=dev)[None, :]
     s_c = s.clamp(0, w_count - 1)
-    ok = (s >= 0) & (s < w_count) & det_mask[:, None] & (starts[s_c] == s_c)
+    ok = (s >= 0) & (s < w_count) & live_d[:, None] & (starts[s_c] == s_c)
     r = d[:, None] - lo_all[s_c]
     ok &= (r >= 0) & (r < n)
     r_c = r.clamp(0, n - 1)
@@ -136,15 +154,22 @@ class DeviceScenePipeline:
     message-passing kernel, ``fused=False`` through the model's module
     loop; an ``'active'`` model always runs its module loop.
     ``point_dtype`` ("float16" or "float32") is the upload dtype of lidar
-    and radar points; None uploads each modality in its source dtype. The
-    JAX package's ``mesh=`` (sharded scenes), ``aot_dir=`` (serialized
-    programs) and the reduced-precision encode (``encode_dtype``) are not
-    ported yet: this class takes none of them."""
+    and radar points; None uploads each modality in its source dtype.
+    ``mesh`` (``parallel.make_mesh``) splits a scene's windows and encoder
+    rows, or a group's scenes, over the ranks (see the module docstring).
+    The JAX package's ``aot_dir=`` (serialized programs) and the
+    reduced-precision encode (``encode_dtype``) are not ported: this class
+    takes neither."""
 
     def __init__(self, model, window_len: int, k: int, fused="auto", device=None,
-                 point_dtype: Optional[str] = None):
+                 point_dtype: Optional[str] = None, mesh=None):
+        if mesh is not None and device is None:
+            device = mesh.device
         model, self.device = prepare_model(model, device)
         self.model = model.eval()
+        self.mesh = mesh
+        if mesh is not None:
+            replicate(self.model, mesh)
         if not isinstance(self.model, MultimodalGNN):
             raise TypeError("the device pipeline scores a MultimodalGNN")
         self.window_len = window_len
@@ -230,14 +255,22 @@ class DeviceScenePipeline:
         starts[:real_windows] = np.arange(real_windows, dtype=np.int32)
         return (ints, floats, *mods, starts)
 
-    def _run(self, ints, floats, img, lidar, radar, starts, max_nodes: int) -> torch.Tensor:
+    def _run(self, ints, floats, img, lidar, radar, starts, max_nodes: int,
+             split: bool = False) -> torch.Tensor:
         """The scene program over S stacked scenes ([S, m_pad, ...] arrays,
         starts [S, W]): build every window, encode every detection once,
         score all S * W windows in one batch, average per scene. Returns
         the packed result [S, 2, m_pad, R] int32 (row 0 the source index,
-        row 1 the f32 mean's bits)."""
+        row 1 the f32 mean's bits). ``split`` (one scene, on the mesh):
+        this rank builds and scores its share of the windows and encodes its
+        share of the rows (all of them when the mesh does not divide them),
+        and averages its share of the destinations."""
         model = self.model
+        mesh = self.mesh if split else None
         s_count, m_pad = ints.shape[:2]
+        all_starts = starts
+        if mesh is not None:
+            starts = starts[:, mesh.rows(starts.shape[1])]
         w_count = starts.shape[1]
         n, k = max_nodes, min(self.k, max_nodes)
         dev = ints.device
@@ -255,9 +288,16 @@ class DeviceScenePipeline:
 
         rows = lambda t: t.reshape(s_count * m_pad, *t.shape[2:])  # noqa: E731
         img, lidar, radar = rows(img), rows(lidar), rows(radar)
+        enc_mesh = mesh if mesh is not None and img.shape[0] % mesh.size == 0 else None
+        if enc_mesh is not None:
+            mine = enc_mesh.rows(img.shape[0])
+            img, lidar, radar = img[mine], lidar[mine], radar[mine]
         x_img, pn, rn = model.encode_frozen(img, lidar, radar)
         lp = lidar.sum(dim=(1, 2)) != 0
         rp = radar.sum(dim=(1, 2)) != 0
+        if enc_mesh is not None:
+            # window det_index gathers reach any detection: every row
+            x_img, pn, rn, lp, rp = all_gather_tuple((x_img, pn, rn, lp, rp), enc_mesh)
 
         # scene g's rows start at g * m_pad
         offs = (torch.arange(s_count * w_count, device=dev) // w_count) * m_pad
@@ -280,6 +320,17 @@ class DeviceScenePipeline:
             scores = model.forward_from_encodings(batch, *enc)[0]
 
         gsrc = torch.gather(gr["det_index"], 1, gr["edge_src"].long())
+        if mesh is not None:
+            # averaging crosses windows: every rank's window grids, then
+            # this rank's share of the destination rows
+            scores, gsrc, emask = all_gather_tuple((scores, gsrc, gr["edge_mask"]), mesh)
+            m_out = -(-m_pad // mesh.size)
+            src, mean = device_average_scores(
+                scores.reshape(-1, n, k), gsrc.reshape(-1, n, k), emask.reshape(-1, n, k),
+                ints[0, :, 0], ints[0, :, 3] != 0, all_starts[0], window_len=self.window_len,
+                d_base=mesh.rank * m_out, m_out=m_out)
+            packed = torch.stack([src, mean.contiguous().view(torch.int32)], dim=1)
+            return all_gather_rows(packed, mesh)[:m_pad].transpose(0, 1)[None]
         grid = lambda a: a.reshape(s_count, w_count, n, k)  # noqa: E731
         scores_g, gsrc_g, emask_g = grid(scores), grid(gsrc), grid(gr["edge_mask"])
         packed = []
@@ -292,14 +343,25 @@ class DeviceScenePipeline:
         return torch.stack(packed)
 
     def _dispatch(self, scenes: Sequence[SceneDetections], m_pad: int, num_windows: int,
-                  max_nodes: int) -> torch.Tensor:
-        """Stack, upload and enqueue a group of live scenes at shared quanta."""
+                  max_nodes: int, split: bool = False) -> torch.Tensor:
+        """Stack, upload and enqueue a group of live scenes at shared quanta.
+        On a mesh a group splits whole scenes (padded with empty scenes to
+        a multiple of the mesh size) and ``split`` one scene's windows; the
+        result is every scene's."""
         self._check_cover(max_nodes)
         dtypes = self._modality_dtypes(scenes)
         prepared = [self._prepare(s, m_pad, num_windows, dtypes) for s in scenes]
+        mesh = None if split else self.mesh
+        if mesh is not None:
+            # empty scenes: no detection, every window parked
+            empty = [np.zeros_like(a) for a in prepared[0][:-1]]
+            empty.append(np.full(num_windows, _PARKED, np.int32))
+            prepared += [tuple(empty)] * ((-len(prepared)) % mesh.size)
+            prepared = prepared[mesh.rows(len(prepared))]
         stacked = [np.stack([p[j] for p in prepared]) for j in range(len(prepared[0]))]
         with torch.inference_mode():
-            return self._run(*(upload(a, self.device) for a in stacked), max_nodes)
+            out = self._run(*(upload(a, self.device) for a in stacked), max_nodes, split=split)
+            return out if mesh is None else all_gather_rows(out, mesh)[:len(scenes)]
 
     @staticmethod
     def _edges(packed: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -334,8 +396,11 @@ class DeviceScenePipeline:
         if q is None:
             return None
         m_pad, real_windows, max_nodes = q
-        num_windows = -(-real_windows // 8) * 8
-        return self._dispatch([scene], m_pad, num_windows, max_nodes)[0]
+        # on a mesh the window count is lifted to a multiple of its size too
+        wq = 8 if self.mesh is None else math.lcm(8, self.mesh.size)
+        num_windows = -(-real_windows // wq) * wq
+        return self._dispatch([scene], m_pad, num_windows, max_nodes,
+                              split=self.mesh is not None)[0]
 
     def finalize_scene(self, pending) -> Dict[Tuple[int, int], float]:
         """Fetch and unpack a :meth:`dispatch_scene` result."""
@@ -403,8 +468,10 @@ def predict_scenes_device(
     cfg: Optional[Config] = None,
     window_len: Optional[int] = None,
     device=None,
+    mesh=None,
 ) -> List[Tuple[list, dict]]:
-    """The device-pipeline form of ``infer.predict.predict_scenes``: the
+    """The device-pipeline form of ``infer.predict.predict_scenes`` (on
+    ``mesh`` when given, see :class:`DeviceScenePipeline`): the
     scenes go in groups of ``cfg.predict.scenes_per_batch`` (the next
     group is dispatched before this one is fetched), lidar and radar upload
     in ``cfg.predict.point_dtype``, and each scene's averaged edges take the
@@ -418,7 +485,7 @@ def predict_scenes_device(
     pipeline = DeviceScenePipeline(
         model, window_len or cfg.predict.batch_size_graph,
         cfg.graph_construction.top_knn_nodes, device=device,
-        point_dtype=cfg.predict.point_dtype,
+        point_dtype=cfg.predict.point_dtype, mesh=mesh,
     )
     size = max(1, cfg.predict.scenes_per_batch)
     groups = [scenes[lo: lo + size] for lo in range(0, len(scenes), size)]

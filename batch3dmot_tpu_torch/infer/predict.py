@@ -19,6 +19,13 @@
 PyTorch runs eagerly, so the JAX package's program-shape pinning
 (``group_pad``, ``num_batches``, fill windows) has no counterpart: a batch
 holds only real windows.
+
+With ``mesh=`` (``parallel.make_mesh``; every rank makes the same calls)
+each window batch is split over the ranks (padded with copies of its last
+window so that the mesh divides it) and the scores are all-gathered; the
+encode-once scorer also splits the detection rows it encodes when the mesh
+divides them and all-gathers the encodings. Every rank returns the full
+result, as the JAX package's calls return global arrays.
 """
 
 from __future__ import annotations
@@ -51,6 +58,14 @@ from batch3dmot_tpu_torch.ops.fused_mp import (
     fused_scores_from_encodings,
     fused_scores_full,
 )
+from batch3dmot_tpu_torch.parallel.mesh import (
+    all_gather_rows,
+    all_gather_tuple,
+    pad_rows,
+    replicate,
+    shard_batch_fn,
+    tree_map,
+)
 from batch3dmot_tpu_torch.train.data import to_padded
 from batch3dmot_tpu_torch.train.encoded import ENC_DIMS
 
@@ -63,29 +78,43 @@ def _pad_detection_count(m: int) -> int:
     return -(-m // 256) * 256
 
 
-def _prepare(model: torch.nn.Module, device) -> Tuple[torch.nn.Module, torch.device]:
+def _prepare(model: torch.nn.Module, device, mesh=None) -> Tuple[torch.nn.Module, torch.device]:
+    """The model in eval mode on its device (a mesh's device, rank 0's
+    weights, when ``mesh`` is given)."""
+    if mesh is not None and device is None:
+        device = mesh.device
     model, device = prepare_model(model, device)
+    if mesh is not None:
+        replicate(model, mesh)
     return model.eval(), device
 
 
-def make_scorer(model, device=None) -> Callable:
+def make_scorer(model, device=None, mesh=None) -> Callable:
     """A batched window scorer: PaddedGraph[B, ...] (with modalities) ->
     scores [B, E] on the device. The frozen encoders run per window node,
     then the fused kernel, or the module loop in ``'active'`` mode; PoseGNN
-    logits go through a sigmoid."""
-    model, device = _prepare(model, device)
+    logits go through a sigmoid. With ``mesh`` each rank scores its share
+    of the windows and every rank returns all the scores."""
+    model, device = _prepare(model, device, mesh)
     pose = isinstance(model, PoseGNN)
     active = model.knn_conv_mode == "active"
+
+    def score(batch):
+        if active:
+            scores = model(batch)[0]
+            return torch.sigmoid(scores) if pose else scores
+        if pose:
+            return torch.sigmoid(fused_logits_pose(model, batch))
+        return fused_scores_full(model, batch)
 
     def run(batch):
         with torch.inference_mode():
             batch = batch.to(device)
-            if active:
-                scores = model(batch)[0]
-                return torch.sigmoid(scores) if pose else scores
-            if pose:
-                return torch.sigmoid(fused_logits_pose(model, batch))
-            return fused_scores_full(model, batch)
+            if mesh is None:
+                return score(batch)
+            n = batch.pose.shape[0]
+            local = shard_batch_fn(mesh)(tree_map(lambda a: pad_rows(a, mesh.size), batch))
+            return all_gather_rows(score(local), mesh)[:n]
 
     return run
 
@@ -93,17 +122,30 @@ def make_scorer(model, device=None) -> Callable:
 class SceneEncodedScorer:
     """Encode-once inference for the multimodal GNN. ``embedding_dtype`` is
     the transport dtype of precomputed encodings (``PredictConfig``'s,
-    float16, by default; None: float32), upcast to float32 on the device."""
+    float16, by default; None: float32), upcast to float32 on the device.
+    With ``mesh``, ``windows_per_batch`` is rounded up to a multiple of its
+    size, each rank scores its share of every window batch and encodes its
+    share of the detection rows (all of them when the mesh does not divide
+    the rows), and every rank returns every score."""
 
-    def __init__(self, model, device=None, embedding_dtype=PredictConfig.embedding_dtype):
-        self.model, self.device = _prepare(model, device)
+    def __init__(self, model, device=None, embedding_dtype=PredictConfig.embedding_dtype,
+                 mesh=None):
+        self.model, self.device = _prepare(model, device, mesh)
+        self.mesh = mesh
         self.embedding_dtype = np.dtype(embedding_dtype or np.float32)
 
     def _encode(self, img, lidar, radar):
+        mesh = self.mesh
+        if mesh is not None and img.shape[0] % mesh.size:
+            mesh = None  # the mesh does not divide the rows: every rank encodes all
+        if mesh is not None:
+            mine = mesh.rows(img.shape[0])
+            img, lidar, radar = img[mine], lidar[mine], radar[mine]
         lp = lidar.sum(dim=(1, 2)) != 0
         rp = radar.sum(dim=(1, 2)) != 0
         x_img, pn, rn = self.model.encode_frozen(img, lidar, radar)
-        return x_img, pn, rn, lp, rp
+        enc = (x_img, pn, rn, lp, rp)
+        return enc if mesh is None else all_gather_tuple(enc, mesh)
 
     def _enc_from_tables(self, encs, m_pad: int):
         """The device encodings of PRECOMPUTED per-scene encoding dicts
@@ -157,6 +199,9 @@ class SceneEncodedScorer:
         for s in scenes:
             if m_pad < s.num_detections:
                 raise ValueError(f"m_pad {m_pad} < {s.num_detections} detections")
+        mesh = self.mesh
+        if mesh is not None:
+            windows_per_batch = -(-windows_per_batch // mesh.size) * mesh.size
         g_count = len(scenes)
 
         def padg(get, shape_tail):
@@ -196,8 +241,13 @@ class SceneEncodedScorer:
             for (mn, me), idxs in by_bucket.items():
                 for lo in range(0, len(idxs), windows_per_batch):
                     chunk = idxs[lo: lo + windows_per_batch]
+                    mine = chunk
+                    if mesh is not None:
+                        # padded with copies of the last window; this rank's share
+                        mine = chunk + chunk[-1:] * ((-len(chunk)) % mesh.size)
+                        mine = mine[mesh.rows(len(mine))]
                     graphs, dets = [], []
-                    for g, i in chunk:
+                    for g, i in mine:
                         w = windows_list[g][i]
                         # modality arrays left out: embeddings come from the
                         # scene-level encode
@@ -213,7 +263,10 @@ class SceneEncodedScorer:
                         dets.append(di)
                     batch = batch_graphs(graphs).to(self.device)
                     det_index = torch.from_numpy(np.stack(dets)).to(self.device)
-                    fetches.append((chunk, self._forward(batch, det_index, enc)))
+                    scores = self._forward(batch, det_index, enc)
+                    if mesh is not None:
+                        scores = all_gather_rows(scores, mesh)[: len(chunk)]
+                    fetches.append((chunk, scores))
         return results, fetches, windows_list
 
     def finalize_scenes(self, pending) -> List[List[np.ndarray]]:

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from batch3dmot_tpu_torch.models.layers import batch_norm, batch_norm_last, init_params_
+from batch3dmot_tpu_torch.parallel.mesh import batch_mean, rand_rows
 
 
 def points_input_f32(x: torch.Tensor) -> torch.Tensor:
@@ -49,12 +50,14 @@ def image_input_f32(x: torch.Tensor) -> torch.Tensor:
 def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator]) -> torch.Tensor:
     """flax ``nn.Dropout``: each element kept with probability 1 - p, the
     kept ones scaled by 1 / (1 - p); the mask comes from ``generator`` (on
-    x's device), so the caller owns the random stream."""
+    x's device), so the caller owns the random stream; under a mesh
+    (``parallel.mesh.data_parallel``) the global batch's mask is drawn and
+    this rank's rows kept."""
     if p <= 0.0:
         return x
     if p >= 1.0:
         return torch.zeros_like(x)
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - p
+    keep = rand_rows(x.shape, generator, x.device) < 1.0 - p
     return torch.where(keep, x / (1.0 - p), 0.0)
 
 
@@ -255,10 +258,11 @@ class PointNetClassifier(_Classifier):
 
 
 def feature_transform_regularizer(trans: torch.Tensor) -> torch.Tensor:
-    """Mean over the batch of ||T T^t - I||_F (the orthogonality loss)."""
+    """Mean over the (global) batch of ||T T^t - I||_F (the orthogonality
+    loss)."""
     eye = torch.eye(trans.shape[-1], dtype=trans.dtype, device=trans.device)
     diff = trans @ trans.transpose(1, 2) - eye
-    return torch.linalg.matrix_norm(diff).mean()
+    return batch_mean(torch.linalg.matrix_norm(diff))
 
 
 # ---------------------------------------------------------------------------

@@ -12,6 +12,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from batch3dmot_tpu_torch.ops.segment import segment_softmax, segment_sum
+from batch3dmot_tpu_torch.parallel.mesh import active_mesh, all_reduce_autograd
 
 
 def gather_nodes(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -102,16 +103,36 @@ def batch_norm(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
     mean and biased variance over every other axis normalise x, and the
     running statistics move 0.1 of the way to that mean and that biased
     variance. (A torch ``BatchNorm`` module in training mode would move
-    ``running_var`` towards the unbiased variance.) No host sync."""
+    ``running_var`` towards the unbiased variance, as ``nn.SyncBatchNorm``
+    does.) Under a mesh (``parallel.mesh.data_parallel``) the statistics
+    are the global batch's, in two passes: the sums, then the sums of
+    squared deviations from the global mean, each all-reduced inside
+    autograd, so the backward is the global one too. (``E[x^2] - E[x]^2``
+    from one all-reduce loses the variance of a channel whose mean
+    dominates it, as zero-padded points make, to cancellation.) No host
+    sync."""
     if not train:
         return F.batch_norm(
             x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
             training=False, eps=bn.eps,
         )
-    out = F.batch_norm(x, None, None, bn.weight, bn.bias, training=True, eps=bn.eps)
+    dims = [d for d in range(x.dim()) if d != 1]
+    mesh = active_mesh()
+    if mesh is None:
+        out = F.batch_norm(x, None, None, bn.weight, bn.bias, training=True, eps=bn.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=dims, correction=0)
+    else:
+        c = x.shape[1]
+        count = x.numel() // c * mesh.size
+        shape = (1, c) + (1,) * (x.dim() - 2)
+        mean = all_reduce_autograd(x.sum(dims), mesh) / count
+        dev = x - mean.reshape(shape)
+        var = all_reduce_autograd((dev * dev).sum(dims), mesh) / count
+        scale = torch.rsqrt(var + bn.eps) * bn.weight
+        out = dev * scale.reshape(shape) + bn.bias.reshape(shape)
+        mean, var = mean.detach(), var.detach()
     with torch.no_grad():
-        dims = [d for d in range(x.dim()) if d != 1]
-        var, mean = torch.var_mean(x, dim=dims, correction=0)
         bn.running_mean.mul_(1.0 - bn.momentum).add_(mean, alpha=bn.momentum)
         bn.running_var.mul_(1.0 - bn.momentum).add_(var, alpha=bn.momentum)
     return out

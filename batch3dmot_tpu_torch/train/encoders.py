@@ -22,9 +22,16 @@ on one device).
     loaders' per-epoch randomness: the LiDAR yaw augmentation, the fixed-size
     subsample); both keep every loss and metric on the device until the
     epoch ends and fetch them once; per-epoch checkpoints
-    ``{prefix}_epoch{e}_loss{loss:.6f}.pt`` hold the model's state dict.
-
-The mesh (data-parallel) form of the JAX trainer is not ported yet.
+    ``{prefix}_epoch{e}_loss{loss:.6f}.pt`` hold the model's state dict;
+  * ``mesh=`` (``parallel.make_mesh``) trains data-parallel, one process per
+    rank, with the math of one process on the global batch: each rank
+    takes its rows of every batch (``fit_device``: each rank holds its
+    share of the dataset's items, padded with the last item, and fetches a
+    batch's rows from the others), the losses and metrics are global means
+    (``parallel.mesh.batch_mean``), batch norm normalises with the global
+    batch's statistics, every random draw takes the global tensor and keeps
+    this rank's rows, and one all-reduce per step sums the gradients and
+    the step's numbers. Rank 0 alone writes checkpoints and logs.
 """
 
 from __future__ import annotations
@@ -45,6 +52,17 @@ from batch3dmot_tpu_torch.models.encoders import (
     feature_transform_regularizer,
     image_input_f32,
     init_encoder_params_,
+)
+from batch3dmot_tpu_torch.parallel.mesh import (
+    RowTable,
+    all_reduce_grads,
+    all_reduce_sum,
+    batch_mean,
+    data_parallel,
+    pad_rows,
+    rand_rows,
+    replicate,
+    shard_batch_fn,
 )
 from batch3dmot_tpu_torch.utils.checkpoint import save_checkpoint
 from batch3dmot_tpu_torch.utils.weights import encoder_variables, load_encoder_variables
@@ -84,7 +102,9 @@ class EncoderTrainer:
     tree, ``{"params", "batch_stats"}`` with numpy leaves, as the JAX
     trainer's ``variables``) when given, else from ``cfg.manual_seed +
     seed`` through ``init_encoder_params_``; the trainer's generator (for
-    dropout and the transforms) starts from the same seed."""
+    dropout and the transforms) starts from the same seed. With ``mesh``
+    the device is the mesh's, the batch size must divide by its size and
+    rank 0's weights are broadcast."""
 
     def __init__(
         self,
@@ -95,9 +115,16 @@ class EncoderTrainer:
         seed: int = 0,
         device=None,
         init_variables: Optional[Dict[str, Any]] = None,
+        mesh=None,
     ):
         self.cfg = cfg or EncoderTrainConfig()
         self.loss_fn = loss_fn
+        self.mesh = mesh
+        if mesh is not None:
+            if self.cfg.batch_size % mesh.size:
+                raise ValueError(f"batch size {self.cfg.batch_size} does not divide by the "
+                                 f"mesh size {mesh.size}")
+            device = mesh.device if device is None else device
         self.model, self.device = prepare_model(model, device)
         seed = self.cfg.manual_seed + seed
         if init_variables is None:
@@ -106,8 +133,11 @@ class EncoderTrainer:
             load_encoder_variables(self.model, init_variables)
         self.lr_at = steplr(self.cfg, steps_per_epoch)
         self.optimizer = steplr_adam(self.cfg, self.model.parameters(), self.device)
+        if mesh is not None:
+            replicate(self.model, mesh)
         self.step = 0
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self._shard = shard_batch_fn(mesh) if mesh is not None else (lambda batch: batch)
 
     # ---- core steps ------------------------------------------------------
 
@@ -122,21 +152,39 @@ class EncoderTrainer:
         for group in self.optimizer.param_groups:
             group["lr"] = lr
         self.optimizer.zero_grad(set_to_none=True)
-        loss, aux = self.loss_fn(self.model, batch, True, self.generator)
+        with data_parallel(self.mesh):
+            loss, aux = self.loss_fn(self.model, batch, True, self.generator)
         loss.backward()
+        if self.mesh is not None:
+            # this rank's terms of the global means -> their sums
+            loss, aux = self._unstack(aux, all_reduce_grads(
+                self.model.parameters(), self.mesh, self._stack(loss, aux)))
         self.optimizer.step()
         self.step += 1
         return loss.detach(), {k: v.detach() for k, v in aux.items()}
 
+    @staticmethod
+    def _stack(loss, aux) -> torch.Tensor:
+        return torch.stack([loss.detach(), *(v.detach().float() for v in aux.values())])
+
+    @staticmethod
+    def _unstack(aux, row):
+        return row[0], dict(zip(aux, row[1:]))
+
     @torch.no_grad()
     def _eval(self, batch):
         """(loss, metrics) with the running statistics, no update."""
-        return self.loss_fn(self.model, batch, False, None)
+        with data_parallel(self.mesh):
+            loss, aux = self.loss_fn(self.model, batch, False, None)
+        if self.mesh is not None:
+            loss, aux = self._unstack(aux, all_reduce_sum(self._stack(loss, aux), self.mesh))
+        return loss, aux
 
     def train_step(self, batch):
-        """One optimizer step on a host batch (numpy arrays or tensors);
-        returns (loss, metrics) on the device."""
-        return self._train_step(self._to_device(batch))
+        """One optimizer step on a host batch (numpy arrays or tensors; on a
+        mesh the global batch, of which this rank takes its rows); returns
+        (loss, metrics) on the device."""
+        return self._train_step(self._to_device(self._shard(batch)))
 
     # ---- epochs ------------------------------------------------------------
 
@@ -181,16 +229,19 @@ class EncoderTrainer:
                     "annotations survive the min-points/ego-radius filters "
                     "for this batch size"
                 )
-            val = ([self._eval(self._to_device(b)) for b in val_batches()]
+            val = ([self._eval(self._to_device(self._shard(b))) for b in val_batches()]
                    if val_batches is not None else [])
             m = self._epoch_metrics([("train", train), ("val", val)])
             self._epoch_tail(epoch, m, t0, history, log_dir, prefix, verbose, writer)
         return history
 
     def _epoch_tail(self, epoch, m, t0, history, log_dir, prefix, verbose, writer):
-        """Timing, logging and the epoch's checkpoint."""
+        """Timing, logging and the epoch's checkpoint (rank 0 alone on a
+        mesh)."""
         m["epoch_time_s"] = time.time() - t0
         history.append(m)
+        if self.mesh is not None and self.mesh.rank != 0:
+            return
         if writer is not None:
             writer.log(epoch, m)
         if verbose:
@@ -203,8 +254,15 @@ class EncoderTrainer:
             )
 
     def _upload_dataset(self, dataset):
-        data = tuple(upload(np.ascontiguousarray(a), self.device) for a in _as_tuple(dataset))
-        return data, int(data[0].shape[0])
+        """(the dataset's arrays on the device, item count); on a mesh this
+        rank's share of the items (padded with copies of the last one so
+        that the mesh divides them, never gathered) as a :class:`RowTable`."""
+        arrays = tuple(np.ascontiguousarray(a) for a in _as_tuple(dataset))
+        n_items = int(arrays[0].shape[0])
+        if self.mesh is None:
+            return tuple(upload(a, self.device) for a in arrays), n_items
+        return RowTable.split([pad_rows(torch.from_numpy(a), self.mesh.size) for a in arrays],
+                              self.mesh, self.device), n_items
 
     def fit_device(
         self,
@@ -228,7 +286,9 @@ class EncoderTrainer:
         validation set's rows in order, in full batches, with a generator
         seeded ``seed * 100003 + epoch``. After the upload only the
         epoch's index rows cross to the card, and the host waits for the
-        card once per epoch, to fetch the metrics."""
+        card once per epoch, to fetch the metrics. On a mesh each rank
+        holds its share of the items and every step fetches its rows of
+        the batch from the ranks that hold them."""
         transform = transform or (lambda gen, batch, train: batch)
         bsz = self.cfg.batch_size
         data, n_items = self._upload_dataset(dataset)
@@ -242,21 +302,26 @@ class EncoderTrainer:
         rng = np.random.default_rng(seed)
 
         def gather(arrays, rows):
-            batch = tuple(a[rows] for a in arrays)
+            batch = (tuple(arrays.fetch(rows, self.mesh)) if self.mesh is not None
+                     else tuple(a[rows] for a in arrays))
             return batch if isinstance(dataset, (tuple, list)) else batch[0]
+
+        def transformed(gen, batch, train):
+            with data_parallel(self.mesh):
+                return transform(gen, batch, train)
 
         history: List[Dict[str, float]] = []
         for epoch in range(epochs):
             t0 = time.time()
             order = rng.permutation(n_items)[: (n_items // bsz) * bsz]
             idx = upload(order.reshape(-1, bsz).astype(np.int64), self.device)
-            train = [self._train_step(transform(self.generator, gather(data, idx[i]), True))
+            train = [self._train_step(transformed(self.generator, gather(data, idx[i]), True))
                      for i in range(idx.shape[0])]
             evals = []
             if val is not None:
                 vdata, vidx = val
                 gen = torch.Generator(device=self.device).manual_seed(seed * 100003 + epoch)
-                evals = [self._eval(transform(gen, gather(vdata, vidx[i]), False))
+                evals = [self._eval(transformed(gen, gather(vdata, vidx[i]), False))
                          for i in range(vidx.shape[0])]
             m = self._epoch_metrics([("train", train), ("val", evals)])
             self._epoch_tail(epoch, m, t0, history, log_dir, prefix, verbose, writer)
@@ -281,7 +346,7 @@ def resnet_ae_loss(model: ResNetAE, batch, train: bool, generator=None):
     MSE / batch_size). uint8 crops are divided by 255 for the target as for
     the input."""
     imgs = _as_tuple(batch)[0]
-    loss = torch.mean((model(imgs, train) - image_input_f32(imgs)) ** 2)
+    loss = batch_mean((model(imgs, train) - image_input_f32(imgs)) ** 2)
     return loss, {"mse": loss}
 
 
@@ -290,11 +355,11 @@ def _classifier_loss(model, batch, train, generator, feature_transform):
     result = model(points, train, generator)
     logp, trans_feat = (result[0], result[2]) if isinstance(result, tuple) else (result, None)
     labels = labels.long()
-    nll = -torch.gather(logp, 1, labels[:, None]).mean()
+    nll = -batch_mean(torch.gather(logp, 1, labels[:, None]))
     loss = nll
     if feature_transform and trans_feat is not None:
         loss = loss + REG_WEIGHT * feature_transform_regularizer(trans_feat)
-    acc = (torch.argmax(logp, dim=1) == labels).float().mean()
+    acc = batch_mean((torch.argmax(logp, dim=1) == labels).float())
     return loss, {"nll": nll, "accuracy": acc}
 
 
@@ -345,7 +410,7 @@ def _collate(gen: torch.Generator, pts: torch.Tensor, counts: torch.Tensor,
     if k < num_points:
         raise ValueError(f"padded width {k} < num_points {num_points}")
     cols = torch.arange(k, device=pts.device)
-    keys = torch.rand((b, k), generator=gen, device=pts.device)
+    keys = rand_rows((b, k), gen, pts.device)
     keys = torch.where(cols < counts[:, None], keys, math.inf)
     order = torch.argsort(keys, dim=1, stable=True)[:, :num_points]
     out = torch.gather(pts, 2, order[:, None, :].expand(b, c, num_points))
@@ -365,7 +430,7 @@ def _reference_normalize(pc: torch.Tensor) -> torch.Tensor:
 def draw_yaw(gen: torch.Generator, b: int, max_yaw: float, device) -> torch.Tensor:
     """The LiDAR augmentation's yaw per cloud, uniform in [-max_yaw,
     max_yaw): the first draw of ``lidar_transform`` in training."""
-    return torch.rand(b, generator=gen, device=device) * (2.0 * max_yaw) - max_yaw
+    return rand_rows((b,), gen, device) * (2.0 * max_yaw) - max_yaw
 
 
 def _rotate_about_centroid(clouds: torch.Tensor, counts: torch.Tensor,

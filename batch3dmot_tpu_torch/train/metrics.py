@@ -26,6 +26,20 @@ def masked_bce(
     """Mean BCE over real (masked-in) edges, optionally per-edge weighted:
     mean of w * bce over the real edges. ``from_logits=True`` is the stable
     BCE-with-logits form for the sigmoid-less PoseGNN head."""
+    total, count = masked_bce_terms(scores, labels, mask, weights, from_logits)
+    return total / torch.clamp(count, min=1.0)
+
+
+def masked_bce_terms(
+    scores: torch.Tensor,
+    labels: torch.Tensor,
+    mask: torch.Tensor,
+    weights: Optional[torch.Tensor] = None,
+    from_logits: bool = False,
+):
+    """(sum of w * bce over the real edges, number of real edges): the two
+    terms of :func:`masked_bce`, which a data-parallel caller sums over its
+    ranks' batches separately (the count outside autograd)."""
     if from_logits:
         z = scores
         per_edge = torch.clamp(z, min=0) - z * labels + torch.log1p(torch.exp(-z.abs()))
@@ -35,7 +49,7 @@ def masked_bce(
     if weights is not None:
         per_edge = per_edge * weights
     m = mask.to(per_edge.dtype)
-    return torch.sum(per_edge * m) / torch.clamp(torch.sum(m), min=1.0)
+    return torch.sum(per_edge * m), torch.sum(m)
 
 
 def _tie_group_ends(s_sorted: torch.Tensor) -> torch.Tensor:

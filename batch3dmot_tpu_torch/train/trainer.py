@@ -43,6 +43,19 @@ captured once, after warm-up steps whose effect on the weights and the
 optimizer is undone; per step the host copies the index row on the device,
 replays the graph and copies its outputs into the group's buffer. A step
 that cannot be captured raises. On the CPU the same steps run eagerly.
+
+``mesh=`` (``parallel.make_mesh``) trains data-parallel, one process per
+rank, with the JAX mesh's global-batch math (JAX ``:73-93``, ``:509-582``):
+every rank takes its rows of each host batch; the loss is each rank's sum
+over the global count of valid edges divided by the batch size, and one
+flat all-reduce per step sums the gradients and the reported loss; the
+APs are those of the all-gathered scores. ``fit_device`` splits each
+group's windowed arrays (graphs, dense encodings, the dedup ``det_index``)
+along the window axis, padded with copies of the empty window, and a step
+fetches its rows from the ranks holding them (``parallel.mesh.fetch_rows``);
+the dedup table is replicated. Under NCCL each step is still one replay,
+its collectives inside the graph; gloo's collectives cannot be captured, so
+under gloo the steps run eagerly. Rank 0 alone writes checkpoints and logs.
 """
 
 from __future__ import annotations
@@ -62,8 +75,17 @@ from batch3dmot_tpu_torch.graph import PaddedGraph
 from batch3dmot_tpu_torch.models.gnn import PoseGNN
 from batch3dmot_tpu_torch.models.layers import init_params_
 from batch3dmot_tpu_torch.ops.fused_mp_train import fused_training_scores
+from batch3dmot_tpu_torch.parallel.mesh import (
+    RowTable,
+    all_gather_rows,
+    all_reduce_grads,
+    all_reduce_sum,
+    pad_rows,
+    replicate,
+    shard_batch_fn,
+)
 from batch3dmot_tpu_torch.train.encoded import FROZEN_ENCODERS, DedupEncodings
-from batch3dmot_tpu_torch.train.metrics import average_precision_multi, masked_bce
+from batch3dmot_tpu_torch.train.metrics import average_precision_multi, masked_bce_terms
 from batch3dmot_tpu_torch.utils.checkpoint import (
     epoch_checkpoint_name,
     load_checkpoint,
@@ -82,7 +104,9 @@ class GNNTrainer:
     on the CPU. The weights come from ``init_state_dict`` when given, else
     from ``seed`` (default ``cfg.manual_seed``) through ``init_params_``.
     A captured step holds the learning rate and the optimizer's state
-    tensors it was captured with: ``load_state`` drops the captured steps."""
+    tensors it was captured with: ``load_state`` drops the captured steps.
+    With ``mesh`` the device is the mesh's, the batch size must divide by
+    its size and rank 0's weights are broadcast."""
 
     def __init__(
         self,
@@ -91,14 +115,25 @@ class GNNTrainer:
         device=None,
         seed: Optional[int] = None,
         init_state_dict: Optional[Dict[str, torch.Tensor]] = None,
+        mesh=None,
     ):
         self.cfg = cfg or GNNConfig()
+        self.mesh = mesh
+        if mesh is not None:
+            if self.cfg.batch_size % mesh.size:
+                raise ValueError(f"batch size {self.cfg.batch_size} does not divide by the "
+                                 f"mesh size {mesh.size}")
+            device = mesh.device if device is None else device
         self.model, self.device = prepare_model(model, device)
         if init_state_dict is None:
             seed = self.cfg.manual_seed if seed is None else seed
             init_params_(self.model, torch.Generator().manual_seed(seed))
         else:
             self.model.load_state_dict(init_state_dict)
+        if mesh is not None:
+            replicate(self.model, mesh)
+        self._shard = shard_batch_fn(mesh) if mesh is not None else (lambda batch: batch)
+        self._told_eager = False
         # PoseGNN emits logits (no sigmoid head); MultimodalGNN emits scores
         self.from_logits = isinstance(self.model, PoseGNN)
         if getattr(self.model, "freeze_encoders", False):
@@ -137,7 +172,9 @@ class GNNTrainer:
 
     def _loss(self, batch):
         """(loss, scores [B, E]) of a batch on the device: a PaddedGraph, or
-        (PaddedGraph, encodings) from EncodedGraphBatcher."""
+        (PaddedGraph, encodings) from EncodedGraphBatcher. On a mesh, this
+        rank's rows and its term of the global loss (its sum over the
+        global count)."""
         graph, enc = batch if isinstance(batch, tuple) else (batch, None)
         if self.model.knn_conv_mode == "active":
             scores = self._module_scores(graph, enc)
@@ -147,14 +184,16 @@ class GNNTrainer:
             graph.edge_weight if self.cfg.loss == "cb"
             else torch.ones_like(graph.edge_weight)
         )
-        bce = masked_bce(
+        total, count = masked_bce_terms(
             scores.reshape(-1),
             graph.edge_label.reshape(-1),
             graph.edge_mask.reshape(-1),
             weights.reshape(-1),
             from_logits=self.from_logits,
         )
-        return bce / self.cfg.batch_size, scores
+        if self.mesh is not None:
+            count = all_reduce_sum(count, self.mesh)
+        return total / torch.clamp(count, min=1.0) / self.cfg.batch_size, scores
 
     def _module_scores(self, graph, enc):
         """Scores [B, E] of the module loop (LOGITS for PoseGNN); the frozen
@@ -165,20 +204,34 @@ class GNNTrainer:
 
     def _step(self, batch):
         """One optimizer step on a batch on the device; returns (loss,
-        scores), detached."""
+        scores), detached (on a mesh: the global loss, this rank's
+        scores)."""
         self.optimizer.zero_grad(set_to_none=True)
         loss, scores = self._loss(batch)
         loss.backward()
+        if self.mesh is not None:
+            loss = all_reduce_grads(self._trained(), self.mesh, loss.detach().reshape(1))[0]
         self.optimizer.step()
         return loss.detach(), scores.detach()
 
+    def _trained(self) -> List[torch.Tensor]:
+        return [p for group in self.optimizer.param_groups for p in group["params"]]
+
+    def _global(self, loss, scores):
+        """On a mesh, (this rank's term, its scores) -> (the global loss,
+        every rank's scores)."""
+        if self.mesh is None:
+            return loss, scores
+        return all_reduce_sum(loss, self.mesh), all_gather_rows(scores, self.mesh)
+
     def train_step(self, batch):
-        """One optimizer step on a host batch; returns (loss, scores) on the
-        device, detached. The gradients stay in ``.grad`` until the next
-        step."""
-        out = self._step(self._to_device(batch))
+        """One optimizer step on a host batch (on a mesh the global batch,
+        of which this rank takes its rows); returns (loss, scores) on the
+        device, detached (the global batch's). The gradients stay in
+        ``.grad`` until the next step."""
+        loss, scores = self._step(self._to_device(self._shard(batch)))
         self.step += 1
-        return out
+        return loss, scores if self.mesh is None else all_gather_rows(scores, self.mesh)
 
     # ---- epoch loops -----------------------------------------------------
 
@@ -222,6 +275,7 @@ class GNNTrainer:
         # the batcher's generator (which may run the encoders: the streaming
         # batcher) advances only here, between groups, never inside a capture
         for batch in batcher.epoch(shuffle=True):
+            batch = self._shard(batch)
             key = _signature(batch)
             pending[key].append(batch)
             if len(pending[key]) == fused_steps:
@@ -258,7 +312,7 @@ class GNNTrainer:
         metrics: Dict[str, List[float]] = defaultdict(list)
         with torch.no_grad():
             for batch in batcher.epoch(shuffle=False):
-                loss, scores = self._loss(self._to_device(batch))
+                loss, scores = self._global(*self._loss(self._to_device(self._shard(batch))))
                 self._batch_metrics(metrics, "val", loss, scores, batch)
         return _nanmean_metrics(metrics)
 
@@ -281,11 +335,14 @@ class GNNTrainer:
 
     def _finish_epoch(self, epoch, m, t0, history, *, val_batcher=None,
                       log_dir=None, version="synthetic", verbose=True, writer=None):
-        """Shared epoch tail: val metrics, logging, checkpointing."""
+        """Shared epoch tail: val metrics, logging, checkpointing (rank 0
+        alone on a mesh)."""
         if val_batcher is not None:
             m.update(self.eval_epoch(val_batcher))
         m["epoch_time_s"] = time.time() - t0
         history.append(m)
+        if self.mesh is not None and self.mesh.rank != 0:
+            return
         if writer is not None:
             writer.log(epoch, m)
         if verbose:
@@ -314,11 +371,19 @@ class GNNTrainer:
         if enc is None:
             return batch
         if isinstance(enc, DedupEncodings):
-            rows = enc.det_index.index_select(0, ib)  # [B, mn]
-            return batch, tuple(
-                t.index_select(0, rows.reshape(-1)).reshape(*rows.shape, *t.shape[1:])
-                for t in enc.table)
+            return batch, _table_rows(enc.table, enc.det_index.index_select(0, ib))
         return batch, tuple(a.index_select(0, ib) for a in enc)
+
+    def _fetch_device_batch(self, res, ib):
+        """This rank's rows of the batch at the global index row ``ib`` of
+        a group split over the mesh (``res.rows``): one fetch of every
+        windowed array, then the dedup table's rows, gathered locally."""
+        parts = res.rows.fetch(ib, self.mesh)
+        n = len(_GRAPH_FIELDS)
+        batch = PaddedGraph(**dict(zip(_GRAPH_FIELDS, parts[:n])))
+        if isinstance(res.enc, DedupEncodings):
+            return batch, _table_rows(res.enc.table, parts[n])
+        return (batch, tuple(parts[n:])) if len(parts) > n else batch
 
     def _device_batch_metrics(self, scores, batch):
         """``_batch_metrics`` on the device: the overall and per-class
@@ -327,11 +392,19 @@ class GNNTrainer:
         per-class presence [C] bool). No sigmoid: it is monotone, so the
         ranking, tie groups included, and hence the AP are the same."""
         graph = batch[0] if isinstance(batch, tuple) else batch
-        s = scores.reshape(-1)
-        y = graph.edge_label.reshape(-1).to(s.dtype)
-        mask = graph.edge_mask.reshape(-1)
+        y = graph.edge_label.to(scores.dtype)
+        mask = graph.edge_mask
         # per-edge class = class of the source node (as _batch_metrics)
-        edge_class = torch.gather(graph.node_class, -1, graph.edge_src.long()).reshape(-1)
+        edge_class = torch.gather(graph.node_class, -1, graph.edge_src.long())
+        if self.mesh is not None:
+            # the global batch's: every rank's rows, in one gather (classes
+            # and labels are small integers, exact in float32)
+            rows = all_gather_rows(torch.stack(
+                [scores, y, mask.to(scores.dtype), edge_class.to(scores.dtype)], dim=1), self.mesh)
+            scores, y, mask = rows[:, 0], rows[:, 1], rows[:, 2] != 0
+            edge_class = rows[:, 3].to(edge_class.dtype)
+        s, y, mask, edge_class = scores.reshape(-1), y.reshape(-1), mask.reshape(-1), \
+            edge_class.reshape(-1)
         sel = mask[None, :] & (edge_class[None, :] == self._class_ids[:, None])  # [C, n]
         aps = average_precision_multi(s, y, torch.cat([mask[None, :], sel]))
         return aps[0], aps[1:], sel.any(dim=1)
@@ -352,12 +425,15 @@ class GNNTrainer:
         """One step on the batch of ``res`` at index row ``ib`` (an update
         when ``train``, else a forward), with its metrics as one [2 + 2C]
         row."""
-        batch = self._gather_device_batch(res.graphs, res.enc, ib)
+        batch = (self._fetch_device_batch(res, ib) if res.rows is not None
+                 else self._gather_device_batch(res.graphs, res.enc, ib))
         if train:
             loss, scores = self._step(batch)
         else:
             with torch.no_grad():
                 loss, scores = self._loss(batch)
+                if self.mesh is not None:
+                    loss = all_reduce_sum(loss, self.mesh)
         ap, ap_cls, present = self._device_batch_metrics(scores, batch)
         return torch.cat([loss.reshape(1), ap.reshape(1), ap_cls, present.to(ap_cls.dtype)])
 
@@ -369,9 +445,16 @@ class GNNTrainer:
         """The steps of the index rows ``idx`` [n_steps, B] over the source
         ``res``; returns their fetched metrics rows, the group's one wait for
         the device. On the card each step is one replay of the captured
-        step (captured on first use), between two copies on the device."""
+        step (captured on first use), between two copies on the device;
+        under gloo, whose collectives cannot be captured, an eager step."""
         n = idx.shape[0]
-        if self.device.type == "cuda":
+        capture = self.device.type == "cuda" and (self.mesh is None or self.mesh.capturable)
+        if self.device.type == "cuda" and not capture and not self._told_eager:
+            if self.mesh.rank == 0:
+                print(f"GNNTrainer: {self.mesh.backend} collectives cannot be captured in a "
+                      "CUDA graph; device-resident steps run eagerly")
+            self._told_eager = True
+        if capture:
             step = res.steps.get(train)
             if step is None:
                 step = res.steps[train] = self._capture(res, idx[0], train)
@@ -450,15 +533,29 @@ class GNNTrainer:
                 for g in groups]
 
     def _upload_group(self, group, tables) -> "_Resident":
+        """One group on the device. On a mesh its windowed arrays are split
+        over the ranks (a :class:`RowTable` of this rank's windows, padded
+        with copies of the empty window so that the mesh divides them; the
+        index ``n_items`` stays the empty window) and a dedup table is
+        replicated."""
         graphs, enc, _ = group
         dev = self.device
-        if isinstance(enc, DedupEncodings):
-            if id(enc.table) not in tables:
-                tables[id(enc.table)] = tuple(t.to(dev) for t in enc.table)
+        n_items = graphs.pose.shape[0] - 1
+        dedup = isinstance(enc, DedupEncodings)
+        if dedup and id(enc.table) not in tables:
+            tables[id(enc.table)] = tuple(t.to(dev) for t in enc.table)
+        if self.mesh is not None:
+            windowed = [getattr(graphs, f) for f in _GRAPH_FIELDS]
+            windowed += [enc.det_index] if dedup else list(enc or ())
+            rows = RowTable.split([pad_rows(a, self.mesh.size) for a in windowed],
+                                  self.mesh, dev)
+            enc = DedupEncodings(None, tables[id(enc.table)]) if dedup else None
+            return _Resident(None, enc, n_items, source=group, rows=rows)
+        if dedup:
             enc = DedupEncodings(enc.det_index.to(dev), tables[id(enc.table)])
         elif enc is not None:
             enc = tuple(t.to(dev) for t in enc)
-        return _Resident(graphs.to(dev), enc, graphs.pose.shape[0] - 1, source=group)
+        return _Resident(graphs.to(dev), enc, n_items, source=group)
 
     def fit_device(self, dataset, epochs: int = 1, val_batcher=None, val_dataset=None,
                    log_dir: Optional[str] = None, version: str = "synthetic",
@@ -532,14 +629,17 @@ class GNNTrainer:
 class _Resident:
     """A source of steps on the device: graphs [rows, ...], encodings (None,
     a tuple or :class:`DedupEncodings`), the number of windows before the
-    empty one, its captured steps by kind (True: training) and the host
-    dataset group it was uploaded from (None for staging buffers)."""
+    empty one, its captured steps by kind (True: training), the host
+    dataset group it was uploaded from (None for staging buffers) and, for
+    a group split over a mesh, this rank's windows (``rows``; then
+    ``graphs`` is None and ``enc`` holds only a dedup table)."""
 
-    graphs: PaddedGraph
+    graphs: Optional[PaddedGraph]
     enc: object
     n_items: int
     steps: dict = dataclasses.field(default_factory=dict)
     source: object = None
+    rows: Optional[RowTable] = None
 
 
 @dataclasses.dataclass
@@ -567,6 +667,16 @@ def epoch_batches(group, batch_size: int, seed: int) -> list:
     n_items = graphs.pose.shape[0] - 1
     idx = index_rows(np.random.default_rng(seed).permutation(n_items), n_items, batch_size)
     return [GNNTrainer._gather_device_batch(graphs, enc, row) for row in torch.from_numpy(idx)]
+
+
+_GRAPH_FIELDS = tuple(f.name for f in dataclasses.fields(PaddedGraph))
+
+
+def _table_rows(table, rows):
+    """The dedup table's rows at ``rows`` [B, mn]: (x_img, pn, rn, lp, rp)
+    each [B, mn, ...]."""
+    return tuple(t.index_select(0, rows.reshape(-1)).reshape(*rows.shape, *t.shape[1:])
+                 for t in table)
 
 
 def _tensors(batch) -> List[torch.Tensor]:

@@ -143,7 +143,23 @@ Phases, each fatal on failure:
      through ``lidar_batches``/``radar_batches`` over ``.npy`` files, ResNet from
      in-memory uint8 batches: the card's machine has no PIL): wall ms and items/s;
      8 steps of each profiled: the device's busy share, kernels per step, Adam's
-     device ms, the top device rows and the host events.
+     device ms, the top device rows and the host events;
+  3i. data parallelism (``parallel/``): (a) one NCCL rank in this process
+     (``make_mesh(1)``): ``fit_device`` dense and dedup and
+     ``fit(fused_steps=4)`` of 3b's model, each step a replay whose
+     collectives were captured (none is issued during an epoch of replays),
+     against the same runs without a mesh (losses at ``RTOL, ATOL``,
+     parameters at ``RTOL`` and the largest of ``ATOL``, one Adam step
+     (``lr``) and ten times the spread of two mesh-free runs; the kernels
+     launched by the mesh run alone counted); (b) two gloo ranks sharing the card (``python -m
+     batch3dmot_tpu_torch.parallel.dryrun 2 --device cuda``: a sharded
+     ``mm`` train step in each kNN-conv mode, sharded ``PoseGNN`` and dedup
+     ``fit_device`` epochs, grouped pipeline inference, cached-embedding
+     scoring and a ResNet ``fit_device`` epoch): every kernel launched on
+     each rank, parameters and one-step gradients bit-identical across the
+     ranks, losses, trained states, one-step gradients and scores against
+     the same paths in this process at ``RTOL, ATOL``; (4g) the
+     ``fit_device`` dense epoch with and without ``make_mesh(1)`` in turns.
 
 Prints an ``{"encoders": [...]}`` line (4f's timings and 3h's checks),
 the card's name and power limit, a ``{"kernels": [...]}`` line and, last,
@@ -559,6 +575,16 @@ def max_param_diff(a, b):
     name of the tensor that holds it."""
     return max((float((x - y).abs().max()), k)
                for (k, x), y in zip(a.model.state_dict().items(), b.model.state_dict().values()))
+
+
+def params_close(a, b, rtol, atol):
+    """The name of the first tensor of two trainers' model states that
+    differs beyond ``rtol``, ``atol`` element-wise, or None."""
+    import torch
+
+    return next((k for (k, x), y in zip(a.model.state_dict().items(),
+                                        b.model.state_dict().values())
+                 if not torch.allclose(x, y, rtol=rtol, atol=atol)), None)
 
 
 def max_rel_diff(got, want):
@@ -1300,6 +1326,162 @@ def time_encoders(card, enc):
     log(f"phase 4f {time.perf_counter() - t_phase:.1f} s")
     return enc_timing
 
+
+
+# ---- data parallelism (phase 3i, timing 4g) ---------------------------------
+
+
+def data_parallel(card, pairs, start_sd, clr_cfg, dense_ds, dedup_ds):
+    """Phase 3i: (a) one NCCL rank (``make_mesh(1)``) in this process:
+    ``fit_device`` dense and dedup and ``fit(fused_steps=4)`` of the phase-3b
+    model against the same runs without a mesh, then 4g, the ``fit_device``
+    epoch with and without the mesh in turns; (b) two gloo ranks sharing the
+    card (``python -m batch3dmot_tpu_torch.parallel.dryrun 2 --device
+    cuda``: the six paths, the 'active' train step among them, held by the
+    dry run to the same paths in one process). Returns the launches per
+    rank and the timings for the kernels line."""
+    import torch
+
+    from batch3dmot_tpu_torch.models import make_model
+    from batch3dmot_tpu_torch.parallel import make_mesh
+    from batch3dmot_tpu_torch.train.encoded import EncodedGraphBatcher
+    from batch3dmot_tpu_torch.train.trainer import WARMUP_STEPS, GNNTrainer
+
+    t_phase = time.perf_counter()
+
+    # no fallback: two NCCL ranks on one card are refused before any
+    # process group exists
+    try:
+        make_mesh(2, rank=0)
+    except ValueError as err:
+        assert "backend='gloo'" in str(err), err
+    else:
+        raise AssertionError("make_mesh(2) over NCCL ran on one card")
+
+    # (a) one rank over NCCL: every step a replay, its collectives inside
+    mesh = make_mesh(1)
+    assert (mesh.backend, mesh.size, mesh.device.type) == ("nccl", 1, "cuda"), mesh
+    runs = {}
+    # the kernels launched by the mesh runs alone (their warm-up steps and
+    # captures: the replays run without the wrappers), and by the mesh-free
+    # ones they are held against
+    path_launches = dict.fromkeys(counters(), 0)
+    free_launches = dict.fromkeys(counters(), 0)
+    for form, ds in (("dense", dense_ds), ("dedup", dedup_ds), ("fused_steps=4", None)):
+        # ref2: the mesh-free run again, the card's own run-to-run spread
+        # (autograd's gathers sum with atomics; Adam turns a gradient within
+        # rounding of zero into a step of about lr either way)
+        ref, ref2 = (GNNTrainer(make_model("mm"), clr_cfg, init_state_dict=start_sd)
+                     for _ in range(2))
+        dp = GNNTrainer(make_model("mm"), clr_cfg, init_state_dict=start_sd, mesh=mesh)
+        ref_losses, dp_losses = record_losses(ref), record_losses(dp)
+
+        def train(tr, ds=ds):
+            if ds is None:
+                tr.train_epoch(EncodedGraphBatcher(pairs, 2, seed=0, uniform=True), fused_steps=4)
+            else:
+                tr.fit_device(ds, epochs=1, verbose=False, seed=7)
+
+        counters(reset=True)
+        train(ref), train(ref2)
+        for k, v in counters().items():
+            free_launches[k] += v
+        c0 = mesh.collectives
+        counters(reset=True)
+        train(dp)
+        launched = counters()
+        captured = mesh.collectives - c0  # issued by the warm-up steps and the capture
+        # the training pair's kernels (the 'noop' model runs no segment sum)
+        assert launched["fwd"] > 0 and launched["bwd"] > 0, (form, launched)
+        for k, v in launched.items():
+            path_launches[k] += v
+        steps = ref.step
+        assert dp.graph_replays == ref.graph_replays == steps, (dp.graph_replays, steps)
+        np.testing.assert_allclose(dp_losses, ref_losses, rtol=RTOL, atol=ATOL)
+        rel = max_rel_diff(dp_losses, ref_losses)  # the replay epoch below adds to the lists
+        (diff, at), (spread, _) = max_param_diff(dp, ref), max_param_diff(ref2, ref)
+        # an element whose gradient is rounding noise may take an Adam step
+        # on one run and not on another (either mesh-free run may be the
+        # one: 4.4e-5 on one element of the fused form), so the floor is
+        # one step, lr; a step of the wrong sign anywhere moves 2 * lr
+        p_atol = max(ATOL, clr_cfg.lr, 10 * spread)
+        far = params_close(dp, ref, RTOL, p_atol)
+        assert far is None, (form, far, diff, at, p_atol)
+        # an epoch of replays alone, traced: no collective leaves Python
+        c1 = mesh.collectives
+        if ds is None:
+            run = lambda tr=dp: tr.train_epoch(  # noqa: E731
+                EncodedGraphBatcher(pairs, 2, seed=1, uniform=True), fused_steps=4)
+        else:
+            run = lambda tr=dp, ds=ds: tr.fit_device(ds, epochs=1, verbose=False)  # noqa: E731
+        _, dev_ms, rows = profile_device(run)
+        assert mesh.collectives == c1, (mesh.collectives, c1)
+        assert dp.graph_replays == 2 * steps, (dp.graph_replays, steps)
+        nccl_rows = sum(c for _, key, c in rows if "nccl" in key.lower())
+        copies = sum(c for _, key, c in rows if "memcpy" in key.lower())
+        runs[form] = dict(steps=steps, collectives_captured=captured, nccl_kernels=nccl_rows,
+                          copies=copies, max_param_diff=diff, mesh_free_spread=spread,
+                          param_atol=p_atol, max_rel_loss=rel, launches=launched)
+        log(f"3i (a) {form} on make_mesh(1) (NCCL): {steps} steps, {dp.graph_replays} replays; "
+            f"{captured} collectives issued while capturing ({WARMUP_STEPS} warm-up steps and "
+            f"the capture: {captured // (WARMUP_STEPS + 1)} per step), none during an epoch of "
+            f"replays, whose trace holds {nccl_rows} NCCL kernels and {copies} copies "
+            f"(NCCL runs a one-rank collective as a copy or nothing); losses vs the mesh-free "
+            f"run max rel diff {rel:.2e}, max |param diff| {diff:.2e} ({at}; held at rtol "
+            f"{RTOL:.0e}, atol {p_atol:.2e}; two mesh-free runs {spread:.2e} apart); kernels "
+            f"launched by the mesh run {launched}")
+        del ref, ref2, dp, run
+    log(f"3i (a) kernels launched by the mesh runs {path_launches}, by the mesh-free runs "
+        f"held against them {free_launches}")
+
+    # 4g: the fit_device epoch with make_mesh(1) against without, in turns
+    ref = GNNTrainer(make_model("mm"), clr_cfg, init_state_dict=start_sd)
+    dp = GNNTrainer(make_model("mm"), clr_cfg, init_state_dict=start_sd, mesh=mesh)
+
+    def epoch_ms(tr):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.fit_device(dense_ds, epochs=1, verbose=False)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    epoch_ms(ref), epoch_ms(dp)  # capture
+    turns = [epoch_ms(ref), epoch_ms(dp), epoch_ms(dp), epoch_ms(ref)]
+    ref_ms, dp_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    prof = {tag: profile_device(lambda tr=tr: tr.fit_device(dense_ds, epochs=1, verbose=False))
+            for tag, tr in (("mesh-free", ref), ("make_mesh(1)", dp))}
+    timing = dict(mesh_free_ms=ref_ms, mesh_ms=dp_ms, steps=runs["dense"]["steps"],
+                  busy={k: v[1] / v[0] for k, v in prof.items()})
+    log(f"4g fit_device dense epoch ({runs['dense']['steps']} steps; {card}): mesh-free "
+        f"{ref_ms:.2f} ms, make_mesh(1) {dp_ms:.2f} ms, ratio {dp_ms / ref_ms:.3f} (turns "
+        "free/mesh/mesh/free " + "/".join(f"{t:.2f}" for t in turns) + " ms); device busy "
+        + ", ".join(f"{k} {100 * v:.1f}%" for k, v in timing["busy"].items()))
+    del ref, dp
+    mesh.close()
+
+    # (b) two gloo ranks sharing the card; the dry run holds them to the
+    # same paths in one process (parallel.dryrun.compare) and writes the
+    # comparison
+    with tempfile.TemporaryDirectory() as out_dir:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "batch3dmot_tpu_torch.parallel.dryrun", "2", "--device",
+             "cuda", "--out", out_dir], capture_output=True, text=True, timeout=600)
+        dryrun_s = time.perf_counter() - t0
+        for line in proc.stdout.splitlines():
+            log(f"  {line}")
+        assert proc.returncode == 0, proc.stderr[-4000:]
+        check = json.loads(Path(out_dir, "check.json").read_text())
+    for r, launches in enumerate(check["counters"]):
+        assert all(v > 0 for v in launches.values()), (r, launches)
+    log(f"3i (b) dryrun 2 --device cuda (gloo, both ranks on {card}) in {dryrun_s:.1f} s, "
+        f"its one-process comparison included: every kernel launched on each rank "
+        f"{check['counters']}; ranks bit-identical; vs one process (at rtol {RTOL:.0e}, atol "
+        f"{ATOL:.0e}) max |trained state diff| {check['param']:.2e}, one-step gradients "
+        f"{check['grad']:.2e}, averaged edges {check['pipeline']:.2e}, cached-embedding scores "
+        f"{check['cached']:.2e}; phase 3i and 4g {time.perf_counter() - t_phase:.1f} s")
+    return dict(one_rank=dict(runs=runs, launches=path_launches, mesh_free=free_launches),
+                timing=timing, ranks=check["counters"], dryrun_s=dryrun_s)
 
 
 def main() -> int:
@@ -2406,6 +2588,9 @@ def main() -> int:
     # ---- 3h. encoder training -------------------------------------------
     enc = train_encoders(clr, all_windows)
 
+    # ---- 3i. data parallelism (and its timing, 4g) ---------------------------
+    dp = data_parallel(card, pairs, start_sd, clr_cfg, dense_ds, dedup_ds)
+
     # ---- 4. timing -----------------------------------------------------
     # the first full batch of the (256, 4096) bucket, with the inputs the
     # main path gives the kernel (kept from one more run); plain and kernel
@@ -2948,6 +3133,16 @@ def main() -> int:
         # the store paths train and score 'noop' models: no segment sum
         store_path=dict(launches=0),
     ))
+    # 3i: each kernel's launches per rank of the two gloo ranks' dry run,
+    # and in 3i (a), the NCCL rank's runs alone and the mesh-free ones held
+    # against them (the warm-up steps and the captures: the replays run
+    # without the wrappers); 4g's timing once
+    for k, key in zip(kernels, ("fused_mp", "fwd", "bwd", "segment_sum")):
+        k["dp"] = dict(rank_launches=[r[key] for r in dp["ranks"]],
+                       phase_3i_a_launches=dp["one_rank"]["launches"][key],
+                       phase_3i_a_mesh_free_launches=dp["one_rank"]["mesh_free"][key],
+                       **(dict(one_rank=dp["one_rank"]["runs"], timing=dp["timing"])
+                          if key == "fwd" else {}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"encoders": enc_timing, "card": card}))
     log(f"card: {card}")

@@ -8,7 +8,9 @@ and the streaming batcher, a metric writer), decodes a flax msgpack file,
 trains the three encoders from their loaders and stacked datasets and
 grafts one into a GNN, and its default-device entry points (scorers, the
 device pipeline and its window construction, the trainers, the encoding
-cache) refuse to run on the CPU unless asked to."""
+cache, the data-parallel mesh) refuse to run on the CPU unless asked to; and
+the ranks that the data-parallel dry run spawns (``parallel/dryrun.py``)
+import none of those modules either."""
 
 import os
 import subprocess
@@ -208,6 +210,14 @@ SCRIPT = textwrap.dedent(
     else:
         raise AssertionError("EncoderTrainer ran without a GPU")
 
+    from batch3dmot_tpu_torch.parallel import make_mesh
+    try:
+        make_mesh(1)
+    except RuntimeError as err:
+        assert "device='cpu'" in str(err)
+    else:
+        raise AssertionError("make_mesh ran without a GPU")
+
     bad = sorted(m for m in sys.modules
                  if m in ("jax", "flax", "optax", "msgpack", "batch3dmot_tpu")
                  or m.startswith(("jax.", "flax.", "optax.", "msgpack.", "batch3dmot_tpu.")))
@@ -215,6 +225,8 @@ SCRIPT = textwrap.dedent(
     print("ok", len(avg))
     """
 )
+
+FOREIGN = ("jax", "flax", "optax", "msgpack", "batch3dmot_tpu")
 
 
 def test_port_imports_no_jax_and_needs_no_gpu():
@@ -228,3 +240,31 @@ def test_port_imports_no_jax_and_needs_no_gpu():
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.startswith("ok")
+
+
+def _dryrun_rank(mesh, out_dir):
+    """The dry run's rank entry, then the foreign modules this rank holds."""
+    from batch3dmot_tpu_torch.parallel import dryrun
+
+    dryrun._rank(mesh, out_dir)
+    bad = sorted(m for m in sys.modules if m.split(".")[0] in FOREIGN)
+    torch.save(bad, f"{out_dir}/modules{mesh.rank}.pt")
+
+
+def test_spawned_dryrun_ranks_import_no_jax(tmp_path):
+    """Two gloo ranks spawned from this process (which holds JAX) run the
+    data-parallel dry run's six paths and import no JAX, flax, optax,
+    msgpack or batch3dmot_tpu module; the dry run's comparison holds them
+    to the same paths in one process."""
+    from batch3dmot_tpu_torch.parallel.dryrun import compare, run_paths
+    from batch3dmot_tpu_torch.parallel.mesh import spawn
+
+    spawn(_dryrun_rank, 2, str(tmp_path), device="cpu")
+    ranks = []
+    for rank in range(2):
+        assert torch.load(tmp_path / f"modules{rank}.pt") == []
+        ranks.append(torch.load(tmp_path / f"rank{rank}.pt", weights_only=False))
+        assert len(ranks[-1]["losses"]) == 5 and ranks[-1]["pipeline"] and ranks[-1]["cached"]
+    worst = compare(ranks, run_paths(None, 2, device="cpu", say=lambda line: None))
+    assert worst["param"] <= 1e-5 and worst["grad"] <= 1e-6
+    assert worst["pipeline"] <= 1e-6 and worst["cached"] <= 1e-6
