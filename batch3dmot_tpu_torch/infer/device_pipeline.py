@@ -157,9 +157,11 @@ class DeviceScenePipeline:
     and radar points; None uploads each modality in its source dtype.
     ``mesh`` (``parallel.make_mesh``) splits a scene's windows and encoder
     rows, or a group's scenes, over the ranks (see the module docstring).
-    The JAX package's ``aot_dir=`` (serialized programs) and the
-    reduced-precision encode (``encode_dtype``) are not ported: this class
-    takes neither."""
+    The JAX package's ``aot_dir=`` (serialized compiled programs) has no
+    counterpart: the port's cold start is the kernels' nvcc build, cached by
+    source hash (``ops/cuda_build.py``). The JAX ``DeviceScenePipeline``
+    has no ``encode_dtype``; that reduced-precision encode belongs to its
+    ``SceneEncodedScorer``."""
 
     def __init__(self, model, window_len: int, k: int, fused="auto", device=None,
                  point_dtype: Optional[str] = None, mesh=None):

@@ -40,6 +40,7 @@ from batch3dmot_tpu_torch.models.layers import (
     GATConv,
     SingleTokenAttention,
     gather_nodes,
+    gather_rows,
 )
 from batch3dmot_tpu_torch.ops.knn import knn_graph_masked
 from batch3dmot_tpu_torch.ops.segment import segment_sum
@@ -267,11 +268,11 @@ class MultimodalGNN(nn.Module):
             if has("img"):
                 blocks.append(self.c2c_att(x_img))
             sens = torch.cat(blocks, dim=-1)
-            att_in = [gather_nodes(sens, dst), gather_nodes(sens, src), edge_attr]
+            att_in = [gather_rows(sens, dst), gather_rows(sens, src), edge_attr]
         else:
             node_i = [t for m, t in (("img", x_img), ("lidar", x_lidar)) if has(m)]
             sens = torch.cat(node_i, dim=-1)
-            att_in = [gather_nodes(sens, dst), gather_nodes(sens, src), edge_attr]
+            att_in = [gather_rows(sens, dst), gather_rows(sens, src), edge_attr]
         att_edge_attr = self.att_edge_encoder(torch.cat(att_in, dim=-1))
 
         x_sens = torch.cat([x_img, x_lidar, x_radar], dim=-1)

@@ -20,6 +20,32 @@ def gather_nodes(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, 1, idx.long().unsqueeze(-1).expand(-1, -1, x.shape[-1]))
 
 
+class _GatherRows(torch.autograd.Function):
+    """:func:`gather_nodes` whose backward sums each row's cotangents in a
+    fixed order: the segment sum (its kernel on the card, ``index_add_`` on
+    the CPU) instead of ``torch.gather``'s scatter-add, whose atomics on the
+    card add a row's terms in a different order from run to run."""
+
+    @staticmethod
+    def forward(ctx, x, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = x.shape[1]
+        return gather_nodes(x, idx)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (idx,) = ctx.saved_tensors
+        return segment_sum(grad.contiguous(), idx, ctx.rows), None
+
+
+def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """:func:`gather_nodes` with a reproducible backward (see
+    ``_GatherRows``) when x takes a gradient."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _GatherRows.apply(x, idx)
+    return gather_nodes(x, idx)
+
+
 class MLP(nn.Sequential):
     """Linear stack with ReLU between layers, never after the last.
 

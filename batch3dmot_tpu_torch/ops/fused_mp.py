@@ -147,26 +147,88 @@ def _unpack(meta, ws):
 # ---------------------------------------------------------------------------
 
 
-def _mlp_tail(h, rest, biases):
+def _mlp_tail(h, rest, biases, relu=torch.relu):
     """Finish an MLP whose first product (bias not yet added) is h: relu
     after every layer but the last."""
-    h = torch.relu(h + biases[0])
+    h = relu(h + biases[0])
     for k, (w, b) in enumerate(zip(rest, biases[1:])):
         h = h @ w + b
         if k < len(rest) - 1:
-            h = torch.relu(h)
+            h = relu(h)
     return h
 
 
+def relu_masks_from_stashes(stashes, att, src, dst, edge_mask, flat_weights, meta, depth):
+    """The ReLU masks of the training kernels' layers, in the order the
+    plain loop applies its ReLUs: each layer recomputed, as the backward
+    kernel recomputes it, from the forward kernel's stashes ``(x_t, e_t,
+    agg_t)`` (``ops/fused_mp_train.py::train_forward_cuda``): the edge
+    update from x_t and e_t, the messages from x_t, x_0 and e_{t+1}, the
+    combine from the stashed message sums agg_t ([past by destination,
+    future by source]), the classifier from e_depth. The recompute runs in
+    the stashes' dtype: float64 stashes and weights give the exact signs
+    for the stashed inputs."""
+    (eu0, eu_rest, eu_b, fut0, fut_rest, fut_b, past0, past_rest, past_b,
+     comb0, comb_rest, comb_b, cls_w, cls_b) = _unpack(meta, flat_weights)
+    xs, es, agg = stashes
+    b, _, n, _ = xs.shape
+    offs = torch.arange(b, device=xs.device)[:, None] * n
+    src_f = (src.long() + offs).reshape(-1)
+    dst_f = (dst.long() + offs).reshape(-1)
+    mask_f = edge_mask[..., None].to(xs.dtype)
+    masks = []
+
+    def record(v):
+        masks.append(v > 0)
+        return torch.relu(v)
+
+    def gather(x, idx):
+        return x.reshape(b * n, -1)[idx].reshape(*src.shape, -1) * mask_f
+
+    with torch.no_grad():
+        init_i, init_j = gather(xs[:, 0], dst_f), gather(xs[:, 0], src_f)
+        for t in range(depth):
+            x_i, x_j = gather(xs[:, t], dst_f), gather(xs[:, t], src_f)
+            h = x_i @ eu0[0] + x_j @ eu0[1] + es[:, t] @ eu0[2]
+            if att is not None:
+                h = h + att @ eu0[3]
+            _mlp_tail(h, eu_rest, eu_b, record)
+            ue = es[:, t + 1]
+            _mlp_tail(x_i @ fut0[0] + ue @ fut0[1] + init_i @ fut0[2], fut_rest, fut_b, record)
+            _mlp_tail(x_j @ past0[0] + ue @ past0[1] + init_j @ past0[2], past_rest, past_b,
+                      record)
+            _mlp_tail(agg[:, t] @ torch.cat(comb0, dim=0), comb_rest, comb_b, record)
+        h = es[:, depth]
+        for i, (w, bias) in enumerate(zip(cls_w, cls_b)):
+            h = h @ w + bias
+            if i < len(cls_w) - 1:
+                h = record(h)
+    return masks
+
+
 def fused_mp_scores_plain(x0, e0, att, src, dst, edge_mask, flat_weights,
-                          meta, depth, logits=False, carries=False):
+                          meta, depth, logits=False, carries=False, relu_masks=None):
     """The layer loop the kernel computes, in plain PyTorch. A masked edge
     gathers zero rows (as the TPU kernels' one-hot rows) and is left out
     of both sums; its score is still defined. ``carries=True`` also returns
-    the layer inputs the training forward stashes: x_t [B, depth, N, nd]
-    (t < depth) and e_t [B, depth + 1, E, ed] (t <= depth)."""
+    the layer inputs and message sums the training forward stashes: x_t
+    [B, depth, N, nd] (t < depth), e_t [B, depth + 1, E, ed] (t <= depth)
+    and agg_t [B, depth, N, 2M] ([past by destination, future by source]).
+
+    ``relu_masks`` (:func:`relu_masks_from_stashes`; off by default) replays
+    given ReLU masks instead of the signs of this run's pre-activations, to
+    compare gradients under one set of branches (a unit whose
+    pre-activation lies within rounding of zero may take either branch in
+    two summation orders)."""
     (eu0, eu_rest, eu_b, fut0, fut_rest, fut_b, past0, past_rest, past_b,
      comb0, comb_rest, comb_b, cls_w, cls_b) = _unpack(meta, flat_weights)
+    if relu_masks is None:
+        relu = torch.relu
+    else:
+        replay = iter(relu_masks)
+
+        def relu(v):
+            return v * next(replay).to(v.dtype)
     b, n, _ = x0.shape
     keep = edge_mask.reshape(-1)
     offs = torch.arange(b, device=x0.device)[:, None] * n
@@ -183,7 +245,7 @@ def fused_mp_scores_plain(x0, e0, att, src, dst, edge_mask, flat_weights,
         return out.reshape(b, n, -1)
 
     x, e = x0, e0
-    xs, es = [], [e0]
+    xs, es, aggs = [], [e0], []
     init_i, init_j = gather(x0, dst_f), gather(x0, src_f)
     for _ in range(depth):
         xs.append(x)
@@ -191,24 +253,25 @@ def fused_mp_scores_plain(x0, e0, att, src, dst, edge_mask, flat_weights,
         h = x_i @ eu0[0] + x_j @ eu0[1] + e @ eu0[2]
         if att is not None:
             h = h + att @ eu0[3]
-        ue = _mlp_tail(h, eu_rest, eu_b)
+        ue = _mlp_tail(h, eu_rest, eu_b, relu)
         f = _mlp_tail(x_i @ fut0[0] + ue @ fut0[1] + init_i @ fut0[2],
-                      fut_rest, fut_b)
+                      fut_rest, fut_b, relu)
         p = _mlp_tail(x_j @ past0[0] + ue @ past0[1] + init_j @ past0[2],
-                      past_rest, past_b)
+                      past_rest, past_b, relu)
         agg_p, agg_f = scatter(p, dst_f), scatter(f, src_f)
-        x = _mlp_tail(agg_p @ comb0[0] + agg_f @ comb0[1], comb_rest, comb_b)
+        aggs.append(torch.cat([agg_p, agg_f], dim=-1))
+        x = _mlp_tail(agg_p @ comb0[0] + agg_f @ comb0[1], comb_rest, comb_b, relu)
         e = ue
         es.append(e)
     h = e
     for i, (w, bias) in enumerate(zip(cls_w, cls_b)):
         h = h @ w + bias
         if i < len(cls_w) - 1:
-            h = torch.relu(h)
+            h = relu(h)
     out = h[..., 0]
     out = out if logits else torch.sigmoid(out)
     if carries:
-        return out, torch.stack(xs, dim=1), torch.stack(es, dim=1)
+        return out, torch.stack(xs, dim=1), torch.stack(es, dim=1), torch.stack(aggs, dim=1)
     return out
 
 

@@ -14,7 +14,11 @@ Phases, each fatal on failure:
      hand-written backward) against autograd of the plain version: scores
      and stashes, and dx0, de0, datt and every weight gradient under a
      random cotangent that is non-zero on every edge, masked ones too; the
-     backward run twice must give bit-identical gradients;
+     backward run twice must give bit-identical gradients; the stashes
+     x_t, e_t and agg_t against the plain loop's; the kernel's gradients
+     also against the plain version replaying the ReLU masks recomputed in
+     float64 from the kernel's stashes, printed beside the first
+     comparison and held to the same bounds;
   2c. the segment-sum kernel against its plain version at the shapes of the
      knn_conv_mode='active' path (message passing, GAT messages and softmax
      denominators), the largest bucket (D 128 and D 1), int64 ids (as the
@@ -52,7 +56,8 @@ Phases, each fatal on failure:
      and on every window with the kernel run's kNN graphs replayed in the
      plain run;
   3d. active training: ``GNNTrainer`` steps for ``mm`` from encodings and
-     ``pose`` from window batches; 18 launches per step, frozen encoders
+     ``pose`` from window batches; 18 launches per step (mm 20: its
+     attention rows' gathers add two in the backward), frozen encoders
      unchanged, 3 steps through the kernel and 3 through the plain version
      agree, 10 more lower the loss;
   3e. device-resident training on the same 48 windows and encodings: one
@@ -148,9 +153,9 @@ Phases, each fatal on failure:
      (``make_mesh(1)``): ``fit_device`` dense and dedup and
      ``fit(fused_steps=4)`` of 3b's model, each step a replay whose
      collectives were captured (none is issued during an epoch of replays),
-     against the same runs without a mesh (losses at ``RTOL, ATOL``,
-     parameters at ``RTOL`` and the largest of ``ATOL``, one Adam step
-     (``lr``) and ten times the spread of two mesh-free runs; the kernels
+     against the same runs without a mesh (losses and parameters at
+     ``RTOL, ATOL``; two mesh-free runs bit-identical; the ops torch
+     itself calls nondeterministic in an epoch listed; the kernels
      launched by the mesh run alone counted); (b) two gloo ranks sharing the card (``python -m
      batch3dmot_tpu_torch.parallel.dryrun 2 --device cuda``: a sharded
      ``mm`` train step in each kNN-conv mode, sharded ``PoseGNN`` and dedup
@@ -159,7 +164,21 @@ Phases, each fatal on failure:
      each rank, parameters and one-step gradients bit-identical across the
      ranks, losses, trained states, one-step gradients and scores against
      the same paths in this process at ``RTOL, ATOL``; (4g) the
-     ``fit_device`` dense epoch with and without ``make_mesh(1)`` in turns.
+     ``fit_device`` dense epoch with and without ``make_mesh(1)`` in turns;
+  3j. the CLI (``batch3dmot_tpu_torch.cli.main``, in this process, no
+     ``--config``, ``--set`` overrides for the ``bench.py`` workload, the
+     default ``Config``'s full-width depth-6 mm): ``build-graphs
+     --synthetic 4``, ``train-gnn --model mm --encoded`` (the automatic
+     device-resident dataset), ``predict --pipeline encoded`` (cached
+     embeddings; raw encode at float32 points) and ``--pipeline device``,
+     ``eval``, ``train-gnn --model pose --fused-steps 4``, ``demo``: each
+     call's kernel launches at their exact expected counts, the encoded
+     averages against ``predict_scenes`` on the same checkpoint and scenes
+     at ``RTOL, ATOL`` (predicted edges, submission and AMOTA equal but at
+     near-ties of the two paths' averages, counted), the device pipeline
+     against the encoded predict the same way; (4h) each call's wall time,
+     predict's rate lines, and the train-gnn epoch beside a ``fit_device``
+     epoch of the same dataset through the Python API, in turns.
 
 Prints an ``{"encoders": [...]}`` line (4f's timings and 3h's checks),
 the card's name and power limit, a ``{"kernels": [...]}`` line and, last,
@@ -173,6 +192,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import functools
 import io
 import itertools
 import json
@@ -1367,14 +1387,31 @@ def data_parallel(card, pairs, start_sd, clr_cfg, dense_ds, dedup_ds):
     # ones they are held against
     path_launches = dict.fromkeys(counters(), 0)
     free_launches = dict.fromkeys(counters(), 0)
+    # which ops of a training epoch PyTorch itself calls nondeterministic:
+    # one dense fit_device epoch (its eager warm-up steps and the capture)
+    # under use_deterministic_algorithms(warn_only=True)
+    probe = GNNTrainer(make_model("mm"), clr_cfg, init_state_dict=start_sd)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            probe.fit_device(dense_ds, epochs=1, verbose=False, seed=7)
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    flagged = sorted({str(w.message).split(" does not have a deterministic")[0][:160]
+                      for w in caught if "determinis" in str(w.message)})
+    log(f"3i (a) nondeterministic ops flagged by torch in a fit_device epoch: "
+        f"{flagged or 'none'}")
+    del probe
     for form, ds in (("dense", dense_ds), ("dedup", dedup_ds), ("fused_steps=4", None)):
-        # ref2: the mesh-free run again, the card's own run-to-run spread
-        # (autograd's gathers sum with atomics; Adam turns a gradient within
-        # rounding of zero into a step of about lr either way)
+        # ref2: the mesh-free run again: bit-identical (the attention rows'
+        # gathers sum their cotangents in a fixed order,
+        # models/layers.py::gather_rows; the kernels add without atomics)
         ref, ref2 = (GNNTrainer(make_model("mm"), clr_cfg, init_state_dict=start_sd)
                      for _ in range(2))
         dp = GNNTrainer(make_model("mm"), clr_cfg, init_state_dict=start_sd, mesh=mesh)
-        ref_losses, dp_losses = record_losses(ref), record_losses(dp)
+        ref_losses, ref2_losses, dp_losses = (record_losses(t) for t in (ref, ref2, dp))
 
         def train(tr, ds=ds):
             if ds is None:
@@ -1391,8 +1428,10 @@ def data_parallel(card, pairs, start_sd, clr_cfg, dense_ds, dedup_ds):
         train(dp)
         launched = counters()
         captured = mesh.collectives - c0  # issued by the warm-up steps and the capture
-        # the training pair's kernels (the 'noop' model runs no segment sum)
+        # the training pair's kernels; the 'noop' mm's backward sums the
+        # attention rows' cotangents with the segment-sum kernel
         assert launched["fwd"] > 0 and launched["bwd"] > 0, (form, launched)
+        assert launched["segment_sum"] == 2 * launched["bwd"], (form, launched)
         for k, v in launched.items():
             path_launches[k] += v
         steps = ref.step
@@ -1400,11 +1439,9 @@ def data_parallel(card, pairs, start_sd, clr_cfg, dense_ds, dedup_ds):
         np.testing.assert_allclose(dp_losses, ref_losses, rtol=RTOL, atol=ATOL)
         rel = max_rel_diff(dp_losses, ref_losses)  # the replay epoch below adds to the lists
         (diff, at), (spread, _) = max_param_diff(dp, ref), max_param_diff(ref2, ref)
-        # an element whose gradient is rounding noise may take an Adam step
-        # on one run and not on another (either mesh-free run may be the
-        # one: 4.4e-5 on one element of the fused form), so the floor is
-        # one step, lr; a step of the wrong sign anywhere moves 2 * lr
-        p_atol = max(ATOL, clr_cfg.lr, 10 * spread)
+        # C.1: two mesh-free epochs from one start are bit-identical
+        assert spread == 0.0 and ref2_losses == ref_losses, (form, spread)
+        p_atol = ATOL
         far = params_close(dp, ref, RTOL, p_atol)
         assert far is None, (form, far, diff, at, p_atol)
         # an epoch of replays alone, traced: no collective leaves Python
@@ -1484,6 +1521,358 @@ def data_parallel(card, pairs, start_sd, clr_cfg, dense_ds, dedup_ds):
                 timing=timing, ranks=check["counters"], dryrun_s=dryrun_s)
 
 
+# ---- the CLI (phase 3j, timing 4h) ---------------------------------------------
+
+# bench.py's workload: 4 synthetic scenes of 16 frames and 40 tracks, window
+# 5, 40 candidate predecessors; the default Config's mm at full width
+# (configs/clr.yaml's widths, depth 6)
+CLI_SIZES = ("graph_construction.synthetic_frames=16", "graph_construction.synthetic_tracks=40",
+             "graph_construction.batch_size_graph=5", "graph_construction.top_knn_nodes=40")
+
+
+def cli_submission(items, preds, cfg):
+    """The submission the CLI's predict assembles from per-scene predicted
+    edges: tracks by hierarchical_clusters with the join thresholds, scene
+    results, track ids offset scene by scene."""
+    from batch3dmot_tpu_torch.infer.tracks import (
+        all_scene_sample_tokens,
+        assemble_submission,
+        hierarchical_clusters,
+        scene_results,
+    )
+
+    results, tokens, offset = [], [], 0
+    for scene, (pred_edges, _) in zip(items, preds):
+        cats = {i: m["category_name"] for i, m in enumerate(scene.metadata)}
+        tracks = hierarchical_clusters(pred_edges, cats, cfg.predict.join_score_thresholds)
+        res = scene_results(tracks, scene, cfg.predict.interpolate_trailer_tracks)
+        for boxes in res.values():
+            for b in boxes:
+                b["tracking_id"] = str(offset + int(b["tracking_id"]))
+        offset += len(tracks)
+        results.append(res)
+        tokens += all_scene_sample_tokens(scene)
+    return json.loads(json.dumps(assemble_submission(
+        results, tokens, use_camera=cfg.main.sensors_used.get("img", True),
+        use_lidar=cfg.main.sensors_used.get("lidar", True), use_radar=False)))
+
+
+def submission_diff(a, b):
+    """The largest difference of two submissions' numeric box fields, box
+    by box; raises unless they hold the same sample tokens and, per token,
+    the same boxes (tracking id, name, sample token) in the same order.
+    Boxes interpolated along trailer tracks take the scene's yaw and
+    velocity, which a scene rebuilt from a store's sidecars holds to
+    float64 rounding of the source scene's."""
+    assert a["meta"] == b["meta"] and a["results"].keys() == b["results"].keys()
+    worst = 0.0
+    for token, boxes in a["results"].items():
+        key = lambda x: (int(x["tracking_id"]), x["tracking_name"])  # noqa: E731
+        xs, ys = sorted(boxes, key=key), sorted(b["results"][token], key=key)
+        assert [key(x) for x in xs] == [key(y) for y in ys], token
+        for x, y in zip(xs, ys):
+            assert x["sample_token"] == y["sample_token"]
+            for f in ("translation", "size", "rotation", "velocity", "tracking_score"):
+                worst = max(worst, float(np.abs(np.subtract(x[f], y[f])).max()))
+    return worst
+
+
+def cli_phase(card):
+    """Phase 3j: the port's CLI (``batch3dmot_tpu_torch.cli.main``, no
+    --config, --set overrides, on the card by default) through
+    build-graphs, train-gnn (mm --encoded: the automatic device-resident
+    dataset; pose --fused-steps 4), predict (encoded: the cached-embedding
+    path and the raw encode; device), eval and demo, in a temporary
+    directory. Holds (a) each run's kernel launches to their exact
+    expected counts, (b) the encoded predict's per-scene averages against
+    ``predict_scenes`` on the same checkpoint and scenes at RTOL, ATOL, and
+    its predicted edges, submission and (d) eval AMOTA equal but for
+    near-ties of the two paths' averages, (c) the device pipeline against
+    the encoded predict the same way. 4h: each subcommand's wall time,
+    predict's rate lines, and the train-gnn epoch beside a fit_device epoch
+    of the same dataset through the Python API, in turns. Returns the
+    launches per kernel and the timings."""
+    import ast
+    import glob
+    import os
+    import shutil
+
+    import torch
+
+    from batch3dmot_tpu_torch import cli
+    from batch3dmot_tpu_torch.config import GNNConfig
+    from batch3dmot_tpu_torch.eval.tracking_metrics import (
+        evaluate_tracking,
+        gt_boxes_from_scene,
+        json_safe,
+    )
+    from batch3dmot_tpu_torch.graphs import build_scene_graphs
+    from batch3dmot_tpu_torch.graphs.build_device import build_scene_graphs_device
+    from batch3dmot_tpu_torch.infer import device_pipeline
+    from batch3dmot_tpu_torch.infer.predict import (
+        SceneEncodedScorer,
+        greedy_round,
+        predict_scenes,
+        threshold_edges,
+    )
+    from batch3dmot_tpu_torch.io import GraphStoreReader
+    from batch3dmot_tpu_torch.models import make_model
+    from batch3dmot_tpu_torch.train.data import group_sizes_by_bucket
+    from batch3dmot_tpu_torch.train.encoded import (
+        materialize_encoded_datasets_dedup,
+        probe_scene_encoding_cache,
+        store_detection_count,
+        _encoder_digest,
+    )
+    from batch3dmot_tpu_torch.train.trainer import WARMUP_STEPS, GNNTrainer
+    from batch3dmot_tpu_torch.utils.checkpoint import load_checkpoint
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="b3d_cli_")
+    sets = [f"paths.tmp={tmp}", *CLI_SIZES]
+    argv_sets = [a for kv in sets for a in ("--set", kv)]
+    cfg = cli.Config()
+    cfg.apply_overrides(sets)
+    times, launches, outputs = {}, {}, {}
+
+    def run(tag, argv):
+        """One CLI call: its result, wall time, printed lines and the
+        kernels it launched (every count set to 0 just before)."""
+        out = io.StringIO()
+        torch.cuda.synchronize()
+        counters(reset=True)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            result = cli.main([*argv, *argv_sets])
+        torch.cuda.synchronize()
+        times[tag] = time.perf_counter() - t0
+        launches[tag] = counters()
+        outputs[tag] = out.getvalue()
+        for line in outputs[tag].splitlines():
+            log(f"  [{tag}] {line}")
+        return result
+
+    def scores_of(tag):
+        d = os.path.join(tmp, f"eval_{tag}", "predict")
+        return {os.path.basename(p).split("_edge_scores")[0]: {
+            ast.literal_eval(k): v for k, v in json.load(open(p)).items()}
+            for p in glob.glob(os.path.join(d, "*_edge_scores.json"))}
+
+    def submission_of(tag):
+        return json.load(open(os.path.join(tmp, f"eval_{tag}", "submission.json")))
+
+    try:
+        # 1. stores
+        run("build-graphs", ["build-graphs", "--synthetic", "4"])
+        stores = sorted(glob.glob(os.path.join(cfg.paths.graphs_dir, "*.b3d")))
+        assert len(stores) == 4, stores
+        sizes = {p: [(n, e) for n, e in zip(*GraphStoreReader(p).window_sizes())
+                     if n > 0 and e > 0] for p in stores}
+        train_p, val_p = stores[:-1], stores[-1:]  # max(1, 4 // 10) validation scenes
+
+        def n_groups(paths):
+            return len(group_sizes_by_bucket([s for p in paths for s in sizes[p]]))
+
+        # 2. train-gnn mm --encoded: the automatic device-resident dataset;
+        # per group of the train and validation sets, the warm-up steps and
+        # the capture run through the wrappers, the replays without them
+        hist_mm = run("train-gnn mm", ["train-gnn", "--model", "mm", "--encoded",
+                                       "--epochs", "1"])
+        assert "auto device-resident dataset" in outputs["train-gnn mm"]
+        gt_, gv = n_groups(train_p), n_groups(val_p)
+        per = WARMUP_STEPS + 1
+        want = dict(fused_mp=per * gv, fwd=per * gt_, bwd=per * gt_, segment_sum=2 * per * gt_)
+        assert launches["train-gnn mm"] == want, (launches["train-gnn mm"], want)
+        assert np.isfinite(hist_mm[0]["train/loss"]), hist_mm
+        ck = sorted(glob.glob(os.path.join(cfg.paths.models, "gnn", "*.pt")),
+                    key=os.path.getmtime)[-1]
+
+        # 3. predict: encoded (the caches train-gnn wrote, float16
+        # transport), encoded from the raw modalities at float32 points,
+        # and the device pipeline at float32 points with the stores' window
+        n_live = sum(len(v) for v in sizes.values())
+        f32 = ["--set", "predict.point_dtype=float32"]
+        run("predict encoded", ["predict", "--pipeline", "encoded", "--checkpoint", ck,
+                                "--set", f"paths.eval={tmp}/eval_cached"])
+        assert "cached-embedding path (float16 uploads, 4 scenes)" in outputs["predict encoded"]
+        run("predict encoded raw", ["predict", "--pipeline", "encoded", "--checkpoint", ck,
+                                    "--set", f"paths.eval={tmp}/eval_raw",
+                                    "--set", "predict.embedding_cache=off", *f32])
+        run("predict device", ["predict", "--pipeline", "device", "--synthetic", "4",
+                               "--checkpoint", ck, "--set", f"paths.eval={tmp}/eval_device",
+                               "--set", "predict.batch_size_graph=5", *f32])
+        # one scene group of 4: the encoded path scores its windows in batches
+        # of 8 at the run's one bucket; the device pipeline scores the group
+        # in one launch, or scene by scene when one scene's work fills the
+        # card (device_pipeline._GROUP_WORK_CEILING)
+        scenes = cli._build_synthetic_scenes(cfg, 4, True)
+        pipe = device_pipeline.DeviceScenePipeline(make_model("mm"), 5, 40)
+        quanta = [pipe._quanta(s) for s in scenes]
+        mn = max(q[2] for q in quanta)
+        work = max(-(-q[1] // 8) * 8 for q in quanta) * mn * mn * min(40, mn)
+        dev_launches = len(scenes) if work >= device_pipeline._GROUP_WORK_CEILING else 1
+        for tag, n in (("predict encoded", -(-n_live // 8)),
+                       ("predict encoded raw", -(-n_live // 8)),
+                       ("predict device", dev_launches)):
+            want = dict(fused_mp=n, fwd=0, bwd=0, segment_sum=0)
+            assert launches[tag] == want, (tag, launches[tag], want)
+
+        # (b) the Python API on the same checkpoint and the stores' scenes
+        model = make_model("mm")
+        model.load_state_dict(load_checkpoint(ck, map_location="cpu"))
+        items = []
+        for p in stores:
+            windows = GraphStoreReader(p).windows()
+            items.append((cli._scene_from_store(p, windows, with_modalities=True), windows))
+        api = predict_scenes(SceneEncodedScorer(model), items, cfg.predict)
+        raw, dev = scores_of("raw"), scores_of("device")
+        api_err = max(max_avg_diff(raw[s.scene_token], a) for (s, _), (_, a) in zip(items, api))
+        thresholds = cfg.predict.edge_score_thresholds
+        cli_preds = [(greedy_round(threshold_edges(raw[s.scene_token], s, thresholds)),
+                      raw[s.scene_token]) for s, _ in items]
+        scene_list = [s for s, _ in items]
+        api_flips, api_unexplained = rounding_flips(api, cli_preds, scene_list)
+        assert api_unexplained == 0, api_unexplained
+        api_sub = cli_submission(scene_list, api, cfg)
+        if api_flips == 0:
+            assert api_sub == submission_of("raw")
+
+        # (c) the device pipeline against the encoded predict: averages at
+        # RTOL, ATOL where the card built the host's windows; a scene with a
+        # kNN flip (k-th and (k+1)-th candidates at a near-tie) is held by
+        # compare_builds instead
+        dev_err, knn_scenes, same = 0.0, 0, []
+        for s, ws in items:
+            if dev[s.scene_token].keys() == raw[s.scene_token].keys():
+                dev_err = max(dev_err, max_avg_diff(dev[s.scene_token], raw[s.scene_token]))
+                same.append(s)
+                continue
+            full = next(x for x in scenes if x.scene_token == s.scene_token)
+            q = pipe._quanta(full)
+            flips_b, _ = compare_builds(full, list(build_scene_graphs(full, 5, cfg.graph_construction)),
+                                        build_scene_graphs_device(full, 5, cfg.graph_construction,
+                                                                  max_nodes=q[2]), 5, 40)
+            assert flips_b > 0, s.scene_token
+            knn_scenes += 1
+        dev_preds = [(greedy_round(threshold_edges(dev[s.scene_token], s, thresholds)),
+                      dev[s.scene_token]) for s in same]
+        raw_same = [p for p, (s, _) in zip(cli_preds, items) if s in same]
+        dev_flips, dev_unexplained = rounding_flips(dev_preds, raw_same, same)
+        assert dev_unexplained == 0, dev_unexplained
+        dev_sub_diff = None
+        if dev_flips == 0 and knn_scenes == 0:
+            dev_sub_diff = submission_diff(submission_of("device"), submission_of("raw"))
+            assert dev_sub_diff <= 1e-6, dev_sub_diff
+
+        # (d) eval against the synthetic scenes' GT
+        gt_path = os.path.join(tmp, "gt.json")
+        gt_boxes = [b for s in cli._build_synthetic_scenes(cfg, 4, False)
+                    for b in gt_boxes_from_scene(s)]
+        with open(gt_path, "w") as f:
+            json.dump({"boxes": gt_boxes}, f)
+        res_cli = run("eval", ["eval", "--submission", os.path.join(tmp, "eval_raw",
+                                                                     "submission.json"),
+                               "--gt", gt_path])
+        printed = json.loads(outputs["eval"].strip().splitlines()[-1])
+        res_api = evaluate_tracking(gt_boxes, [b for v in api_sub["results"].values() for b in v],
+                                    list(api_sub["results"].keys()))
+        assert printed == json_safe({"amota": res_cli.amota, "amotp": res_cli.amotp})
+        if api_flips == 0:
+            assert res_api.amota == res_cli.amota, (res_api.amota, res_cli.amota)
+        assert np.isfinite(res_cli.amota)
+
+        # 5. train-gnn pose, host batches from the stores, 4 steps per
+        # group: one staging source (every batch has one shape), whose
+        # warm-up steps and capture run the training pair; validation runs
+        # the inference kernel once per batch
+        hist_pose = run("train-gnn pose", ["train-gnn", "--model", "pose", "--epochs", "1",
+                                           "--fused-steps", "4",
+                                           "--set", f"paths.models={tmp}/pose"])
+        val_batches = -(-len(sizes[val_p[0]]) // cfg.gnn.batch_size)
+        want = dict(fused_mp=val_batches, fwd=per, bwd=per, segment_sum=0)
+        assert launches["train-gnn pose"] == want, (launches["train-gnn pose"], want)
+        assert np.isfinite(hist_pose[0]["train/loss"])
+
+        # 6. demo (its own temporary directory)
+        res_demo = run("demo", ["demo", "--synthetic", "2", "--epochs", "1"])
+        assert np.isfinite(res_demo.amota) and launches["demo"]["fused_mp"] > 0
+        shutil.rmtree(outputs["demo"].split("(artifacts in ")[-1].split(")")[0],
+                      ignore_errors=True)
+
+        log(f"3j CLI on {card}: kernels launched (every count reset before each call) "
+            + "; ".join(f"{k} {v}" for k, v in launches.items()))
+        log(f"3j (b) predict --pipeline encoded (raw encode, float32 points) vs predict_scenes "
+            f"on the same checkpoint and scenes: max|avg diff| {api_err:.3e} (RTOL {RTOL:g}, "
+            f"ATOL {ATOL:g}); predicted edges at a near-tie of the two paths' averages: "
+            f"{api_flips}; submission {'equal' if api_flips == 0 else 'differs at those'}")
+        log(f"3j (c) predict --pipeline device vs encoded: max|avg diff| {dev_err:.3e} over "
+            f"{len(same)} scenes with the host's windows ({knn_scenes} with a kNN near-tie "
+            f"flip); predicted edges at a near-tie: {dev_flips}; submission: the same "
+            f"tracks, box fields within {dev_sub_diff} (the device path's scenes come from "
+            f"the generator, the encoded path's from the stores' sidecars)")
+        log(f"3j (d) eval AMOTA {res_cli.amota!r} (API path {res_api.amota!r}); demo AMOTA "
+            f"{res_demo.amota!r}; train-gnn mm epoch loss {hist_mm[0]['train/loss']:.6f}, "
+            f"pose {hist_pose[0]['train/loss']:.6f}")
+
+        # 4h: wall times, rate lines, and the train-gnn epoch beside a
+        # fit_device epoch of the same dataset through the API, in turns
+        # (2 epochs each: the second is the steady epoch; the caches are warm)
+        digest = _encoder_digest(model)
+
+        def encoded(paths):
+            out = []
+            for p in paths:
+                enc = probe_scene_encoding_cache(p, digest, store_detection_count(p))
+                assert enc is not None, p
+                out += [(w, enc) for w in GraphStoreReader(p).windows()
+                        if w.num_nodes > 0 and w.num_edges > 0]
+            return out
+
+        api_train = materialize_encoded_datasets_dedup(encoded(train_p))
+        api_val = materialize_encoded_datasets_dedup(encoded(val_p))
+
+        def cli_epoch(i):
+            h = run(f"train-gnn timing {i}", ["train-gnn", "--model", "mm", "--encoded",
+                                              "--epochs", "2", "--init-checkpoint", ck,
+                                              "--set", f"paths.models={tmp}/timing{i}"])
+            return h[1]["epoch_time_s"] * 1e3
+
+        def api_epoch():
+            tr = GNNTrainer(make_model("mm"), GNNConfig(), init_state_dict=model.state_dict())
+            h = tr.fit_device(api_train, epochs=2, val_dataset=api_val, verbose=False)
+            return h[1]["epoch_time_s"] * 1e3
+
+        turns = [cli_epoch(0), api_epoch(), api_epoch(), cli_epoch(1)]
+        rates = [line for tag, out in outputs.items() if tag.startswith("predict")
+                 for line in out.splitlines() if line.startswith("predict[")]
+        steps = sum(-(-len(g) // cfg.gnn.batch_size)
+                    for _, g in group_sizes_by_bucket([s for p in train_p for s in sizes[p]]))
+        timing = dict(wall_s={k: v for k, v in times.items() if "timing" not in k},
+                      train_epoch_ms=dict(cli=(turns[0] + turns[3]) / 2,
+                                          fit_device=(turns[1] + turns[2]) / 2, turns=turns,
+                                          steps=steps))
+        log(f"4h CLI wall times on {card}: " + ", ".join(
+            f"{k} {v:.2f} s" for k, v in timing["wall_s"].items()))
+        for line in rates:
+            log(f"4h  {line.split(' -> ')[0]}")
+        log(f"4h train-gnn mm --encoded steady epoch ({steps} train steps + validation) "
+            f"{timing['train_epoch_ms']['cli']:.2f} ms vs fit_device through the API "
+            f"{timing['train_epoch_ms']['fit_device']:.2f} ms (turns cli/api/api/cli "
+            + "/".join(f"{t:.2f}" for t in turns) + f" ms); phase 3j and 4h "
+            f"{time.perf_counter() - t_phase:.1f} s")
+        total = dict.fromkeys(counters(), 0)
+        for tag, c in launches.items():
+            if "timing" in tag:
+                continue
+            for k, v in c.items():
+                total[k] += v
+        return dict(launches=total, per_call={k: v for k, v in launches.items()
+                                              if "timing" not in k},
+                    timing=timing, api_err=api_err, dev_err=dev_err)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -1522,6 +1911,7 @@ def main() -> int:
         fused_mp_scores_cuda,
         fused_mp_scores_plain,
         pack_mp_weights,
+        relu_masks_from_stashes,
     )
     from batch3dmot_tpu_torch.ops.fused_mp_train import (
         fused_mp_train_scores,
@@ -1638,7 +2028,8 @@ def main() -> int:
         ("mm", (1024, 32768), 1, 0),
         ("mm", (64, 512), 2, 1),  # the second window is all padding
     ]
-    fwd_err = bwd_err = 0.0
+    fwd_err = bwd_err = replay_worst = 0.0
+    replay_rows = []
     for name, (n, e), windows, empty in train_cases:
         model = models[name]
         pose = name == "pose"
@@ -1647,11 +2038,11 @@ def main() -> int:
         ct = torch.from_numpy(rng.uniform(-1.0, 1.0, (windows, e)).astype(np.float32)).cuda()
         flat, meta = extract_mp_params(model, not pose, nd, ed)
         with torch.no_grad():
-            got = train_forward_cuda(*inputs, flat, meta, 6, pose)[:3]
+            got = train_forward_cuda(*inputs, flat, meta, 6, pose)[:4]
             ref = fused_mp_scores_plain(*inputs, flat, meta, 6, pose, carries=True)
         torch.cuda.synchronize()
         f_err = 0.0
-        for what, a, b in zip(("scores", "x_t", "e_t"), got, ref):
+        for what, a, b in zip(("scores", "x_t", "e_t", "agg_t"), got, ref):
             torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL, msg=what)
             f_err = max(f_err, float((a - b).abs().max()))
         fwd_err = max(fwd_err, f_err)
@@ -1666,19 +2057,50 @@ def main() -> int:
 
         err, tied = compare_grads(g_k, g_p, plain64, f"{name} ({n},{e}) x{windows}")
         bwd_err = max(bwd_err, err)
+        # the plain version again, its ReLUs replaying the masks recomputed
+        # in float64 from the kernel's own stashes (x_t, e_t, agg_t), held
+        # to the same bounds as above and printed beside them; near: the
+        # units where a float32 recompute from the same stashes differs
+        d64 = lambda t: None if t is None else t.double()  # noqa: E731
+        masks = relu_masks_from_stashes([t.double() for t in got[1:]], d64(inputs[2]),
+                                        *inputs[3:], [w.double() for w in flat], meta, 6)
+        masks32 = relu_masks_from_stashes(got[1:], inputs[2], *inputs[3:], flat, meta, 6)
+        near = sum(int((a != b).sum()) for a, b in zip(masks, masks32))
+        del masks32
+        _, g_r = train_grads(model, inputs, ct, 6, pose, functools.partial(
+            fused_mp_scores_plain, relu_masks=masks))
+        replay_err, replay_outside, replay_l2 = 0.0, 0, 0.0
+        for k, r in g_r.items():
+            diff = (g_k[k] - r).abs()
+            replay_err = max(replay_err, float(diff.max()))
+            replay_outside += int((diff > GRAD_ATOL * float(r.abs().max())
+                                   + GRAD_RTOL * r.abs()).sum())
+            replay_l2 = max(replay_l2, float(diff.double().norm() / r.double().norm()))
+        assert replay_l2 <= MAX_REL_L2, (name, n, e, replay_l2)
+        replay_worst = max(replay_worst, replay_err)
+        replay_rows.append((name, n, e, windows, near, replay_outside, replay_l2))
         _, again = train_grads(model, inputs, ct, 6, pose, fused_mp_train_scores)
         torch.cuda.synchronize()
         for k in g_k:
             assert torch.equal(g_k[k], again[k]), f"{k}: two backward runs differ"
         log(f"kernel fused_mp_train {name} ({n},{e}) x{windows} empty={empty}: "
             f"max|kernel-plain| scores and stashes {f_err:.3e}, gradients {err:.3e} "
-            f"over {len(g_k)} tensors; backward bit-identical across two runs")
+            f"over {len(g_k)} tensors ({len(tied)} held to the relative L2 bound); under "
+            f"the replayed ReLU masks (float64 from the kernel's stashes; {near} units "
+            f"where the float32 recompute differs) {replay_err:.3e}, {replay_outside} "
+            f"elements outside rtol {GRAD_RTOL:g}, atol {GRAD_ATOL:g} x max|plain| "
+            f"(relative L2 {replay_l2:.2e}, held to {MAX_REL_L2:g}); backward "
+            f"bit-identical across two runs")
         for k, outside, size, rel_l2, rk, rp in tied:
             log(f"  {k}: {outside}/{size} elements outside the gradient tolerance, "
                 f"relative L2 error {rel_l2:.2e}; RMS from a float64 plain run: "
                 f"kernel {rk:.3e}, f32 plain {rp:.3e}")
         model.zero_grad(set_to_none=True)
-        del inputs, got, ref, g_k, g_p, again
+        del inputs, got, ref, g_k, g_p, g_r, masks, again
+
+    log("2b under replayed ReLU masks (case, units a float32 recompute flips, elements "
+        f"outside the gradient tolerance, relative L2): {replay_rows}; max|kernel-plain| "
+        f"{replay_worst:.3e}")
 
     # ---- 2c. the segment-sum kernel against its plain version ------------
     # the active path's shapes: mm message passing (D 128), its GAT messages
@@ -2034,7 +2456,10 @@ def main() -> int:
         losses = [float(tr.train_step(b)[0]) for b in batches]
         torch.cuda.synchronize()
         steps_launches = segment_sum.launches
-        assert steps_launches == 18 * len(batches), (name, steps_launches)
+        # 18 forward segment sums; the mm's backward adds two, the
+        # attention rows' gathers (models/layers.py::gather_rows)
+        per_step = 18 + (2 if name == "mm" else 0)
+        assert steps_launches == per_step * len(batches), (name, steps_launches)
         assert np.isfinite(losses).all(), losses
         state = tr.model.state_dict()
         for k, v in frozen_a.items():
@@ -2219,7 +2644,7 @@ def main() -> int:
     del t_pose, t_cal
 
     # the active mm: the module loop with the kNN GATConv, 18 segment sums
-    # per forward, through fit_device on 8 windows of the active encodings,
+    # per forward and 2 in the backward (the attention rows' gathers), through fit_device on 8 windows of the active encodings,
     # against eager train_steps on the same rows
     act_ds = materialize_encoded_dataset(pairs_a[:8])
     act_batches = epoch_batches(act_ds, 2, 7)
@@ -2227,7 +2652,7 @@ def main() -> int:
     t_ref = GNNTrainer(make_model("mm", knn_conv_mode="active"), clr_cfg,
                        init_state_dict=active_sd)
     act_losses, act_step, c_act = eager_steps(t_ref, act_batches)
-    assert c_act["segment_sum"] == act_step.get("segment_sum_kernel") == 18, (c_act, act_step)
+    assert c_act["segment_sum"] == act_step.get("segment_sum_kernel") == 20, (c_act, act_step)
     np.testing.assert_allclose(act_dev_losses, act_losses, rtol=1e-4)
     act_rel = max_rel_diff(act_dev_losses, act_losses)
     act_diff, act_at = max_param_diff(t_act, t_ref)
@@ -2590,6 +3015,9 @@ def main() -> int:
 
     # ---- 3i. data parallelism (and its timing, 4g) ---------------------------
     dp = data_parallel(card, pairs, start_sd, clr_cfg, dense_ds, dedup_ds)
+
+    # ---- 3j. the CLI (and its timing, 4h) ------------------------------------
+    cli_run = cli_phase(card)
 
     # ---- 4. timing -----------------------------------------------------
     # the first full batch of the (256, 4096) bucket, with the inputs the
@@ -3130,8 +3558,9 @@ def main() -> int:
         bound_ms=seg_bound_ms, bound_by=seg_bound_by, library_ms=seg_lib_ms,
         device_pipeline=dict(launches=act_single_launches,
                              grouped_launches=act_group_launches),
-        # the store paths train and score 'noop' models: no segment sum
-        store_path=dict(launches=0),
+        # the store paths' 'noop' mm steps: the attention rows' gathers in
+        # the backward
+        store_path=dict(launches=c_store["segment_sum"] + c_raw["segment_sum"]),
     ))
     # 3i: each kernel's launches per rank of the two gloo ranks' dry run,
     # and in 3i (a), the NCCL rank's runs alone and the mesh-free ones held
@@ -3143,6 +3572,12 @@ def main() -> int:
                        phase_3i_a_mesh_free_launches=dp["one_rank"]["mesh_free"][key],
                        **(dict(one_rank=dp["one_rank"]["runs"], timing=dp["timing"])
                           if key == "fwd" else {}))
+    # 3j: each kernel's launches by the CLI's calls (each wrapper's count
+    # from its reset just before a call to just after it); 4h's timing once
+    for k, key in zip(kernels, ("fused_mp", "fwd", "bwd", "segment_sum")):
+        k["cli"] = dict(launches=cli_run["launches"][key],
+                        **(dict(per_call={t: c[key] for t, c in cli_run["per_call"].items()},
+                                timing=cli_run["timing"]) if key == "fwd" else {}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"encoders": enc_timing, "card": card}))
     log(f"card: {card}")

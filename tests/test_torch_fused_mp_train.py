@@ -261,3 +261,47 @@ def test_cuda_training_kernels_match_plain(name, bucket, windows, empty):
     (_, again), _ = kernel_and_plain(model, arrays, 6, pose)
     for k in g_k:
         assert torch.equal(g_k[k], again[k]), f"{k} differs between two backward runs"
+
+
+@pytest.mark.parametrize("name", ["mm", "pose"])
+def test_relu_masks_from_stashes_replay_the_loop(name):
+    """The ReLU masks recomputed from the training stashes (x_t, e_t,
+    agg_t) of the plain loop itself replay it bit for bit, scores and
+    gradients; flipping one replayed mask changes the gradients, so the
+    replay is what autograd differentiates."""
+    from batch3dmot_tpu_torch.ops.fused_mp import relu_masks_from_stashes
+
+    # seed 1: no ReLU of the classifier is dead everywhere (a dead last
+    # hidden layer would zero every gradient, flipped masks or not)
+    model = init_params_(make_model(name, depth=2), torch.Generator().manual_seed(1))
+    pose = name == "pose"
+    x0, e0, att, src, dst, mask, ct = (
+        None if a is None else torch.from_numpy(a)
+        for a in _train_inputs(np.random.default_rng(9), 2, 16, 48, model.node_dim,
+                               model.edge_dim, not pose, 1))
+
+    def run(**kw):
+        model.zero_grad(set_to_none=True)
+        leaves = [None if t is None else t.clone().requires_grad_() for t in (x0, e0, att)]
+        flat, meta = extract_mp_params(model, att is not None, model.node_dim,
+                                       model.edge_dim, trainable=True)
+        out = fused_mp_scores_plain(*leaves, src, dst, mask, flat, meta, 2, pose, **kw)
+        scores = out[0] if kw.get("carries") else out
+        scores.backward(ct)
+        grads = [t.grad for t in leaves if t is not None]
+        grads += [p.grad.clone() for p in model.parameters() if p.grad is not None]
+        return out, grads, flat, meta
+
+    (scores, *stashes), grads, flat, meta = run(carries=True)
+    assert stashes[2].shape == (2, 2, 16, 2 * (64 if pose else 128))
+    masks = relu_masks_from_stashes([s.detach() for s in stashes], att, src, dst, mask,
+                                    [w.detach() for w in flat], meta, 2)
+    assert len(masks) == 2 * 6 + 3 and all(0 < float(m.float().mean()) < 1 for m in masks)
+    replayed, r_grads, _, _ = run(relu_masks=masks)
+    assert torch.equal(replayed, scores.detach())
+    assert all(torch.equal(a, b) for a, b in zip(r_grads, grads))
+    flipped = list(masks)
+    flipped[3] = flipped[3].clone()
+    flipped[3].view(-1)[: flipped[3].numel() // 2] ^= True
+    _, f_grads, _, _ = run(relu_masks=flipped)
+    assert any(not torch.equal(a, b) for a, b in zip(f_grads, grads))

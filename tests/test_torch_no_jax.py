@@ -10,7 +10,9 @@ grafts one into a GNN, and its default-device entry points (scorers, the
 device pipeline and its window construction, the trainers, the encoding
 cache, the data-parallel mesh) refuse to run on the CPU unless asked to; and
 the ranks that the data-parallel dry run spawns (``parallel/dryrun.py``)
-import none of those modules either."""
+import none of those modules either; nor does the CLI (build, train,
+predict, eval on the CPU), which also imports no ``yaml`` until a
+``--config`` file is read, nor the ranks that ``--devices 2`` spawns."""
 
 import os
 import subprocess
@@ -268,3 +270,73 @@ def test_spawned_dryrun_ranks_import_no_jax(tmp_path):
     worst = compare(ranks, run_paths(None, 2, device="cpu", say=lambda line: None))
     assert worst["param"] <= 1e-5 and worst["grad"] <= 1e-6
     assert worst["pipeline"] <= 1e-6 and worst["cached"] <= 1e-6
+
+
+CLI_SCRIPT = textwrap.dedent(
+    """
+    import sys, tempfile
+    import torch
+    torch.set_num_threads(1)
+    from batch3dmot_tpu_torch.cli import main
+
+    tmp = tempfile.mkdtemp()
+    common = ["--set", f"paths.tmp={tmp}", "--set", "graph_construction.batch_size_graph=3",
+              "--set", "graph_construction.top_knn_nodes=4", "--set", "gnn.gnn_depth=1",
+              "--device", "cpu"]
+    main(["build-graphs", "--synthetic", "1", *common])
+    history = main(["train-gnn", "--model", "pose", "--epochs", "1", *common])
+    assert history[0]["train/loss"] > 0
+    main(["predict", "--model", "pose", *common])
+    main(["predict", "--model", "mm", "--pipeline", "device", "--synthetic", "1", *common,
+          "--set", f"paths.eval={tmp}/dev"])
+    main(["train-gnn", "--model", "mm", "--encoded", "--epochs", "1", *common,
+          "--set", f"paths.models={tmp}/mm"])
+    bad = sorted(m for m in sys.modules if m.split(".")[0] in
+                 ("jax", "flax", "optax", "msgpack", "batch3dmot_tpu", "yaml"))
+    assert not bad, bad
+    main(["build-graphs", "--synthetic", "1", "--config", sys.argv[1], *common])
+    assert "yaml" in sys.modules
+    print("ok")
+    """
+)
+
+
+def test_cli_imports_no_jax_and_no_yaml_without_a_config():
+    env = dict(os.environ)
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    env["PATH"] = "/usr/bin:/bin"
+    env["PYTHONPATH"] = str(REPO)
+    proc = subprocess.run(
+        [sys.executable, "-c", CLI_SCRIPT, str(REPO / "configs" / "pose_mini.yaml")],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.rstrip().endswith("ok")
+
+
+def _cli_rank(mesh, argv, result_path, out_dir):
+    """A ``--devices`` rank of the CLI, then the foreign modules it holds."""
+    from batch3dmot_tpu_torch import cli
+
+    cli._rank_command(mesh, argv, result_path)
+    bad = sorted(m for m in sys.modules if m.split(".")[0] in (*FOREIGN, "yaml"))
+    torch.save(bad, f"{out_dir}/cli_modules{mesh.rank}.pt")
+
+
+def test_spawned_cli_ranks_import_no_jax(tmp_path):
+    """The ranks of ``predict --devices 2`` (spawned from this process,
+    which holds JAX) import no foreign module and no yaml; rank 0 writes
+    the result the parent returns."""
+    from batch3dmot_tpu_torch import cli
+    from batch3dmot_tpu_torch.parallel.mesh import spawn
+
+    common = ["--set", f"paths.tmp={tmp_path}", "--set", "graph_construction.batch_size_graph=3",
+              "--set", "graph_construction.top_knn_nodes=4", "--set", "gnn.gnn_depth=1",
+              "--device", "cpu"]
+    cli.main(["build-graphs", "--synthetic", "1", *common])
+    argv = ["predict", "--model", "pose", "--devices", "2", *common]
+    spawn(_cli_rank, 2, argv, str(tmp_path / "result.json"), str(tmp_path), device="cpu")
+    for rank in range(2):
+        assert torch.load(tmp_path / f"cli_modules{rank}.pt") == []
+    assert (tmp_path / "result.json").exists()
+    assert (tmp_path / "nuscenes" / "eval" / "submission.json").exists()
