@@ -30,10 +30,12 @@ reads every scene and store; rank 0 alone prints and writes checkpoints,
 logs, per-scene JSONs and the submission. Under ``torchrun`` the ranks come
 from the environment and nothing is spawned.
 
-The nuScenes data plane is not ported: ``preprocess``, ``validate-data``,
-``export-gt``, ``build-graphs`` without ``--synthetic``, ``predict
---pipeline device`` without ``--synthetic`` and ``eval --devkit`` exit
-non-zero with a message naming what they need.
+The nuScenes data plane runs as in the JAX CLI: ``validate-data``,
+``preprocess``, ``build-graphs`` and ``predict --pipeline device`` from a
+nuScenes tree, and ``export-gt``. It is host numpy; on the card's machine,
+which has no PIL and no PyYAML, run it with ``--set`` overrides and the
+lidar and radar sensors (an image request there raises where PIL is
+imported). ``eval --devkit`` needs the nuscenes-devkit, as in the JAX CLI.
 """
 
 from __future__ import annotations
@@ -94,20 +96,6 @@ def _mesh_from_args(args):
     return getattr(args, "mesh", None)
 
 
-def _not_ported(what: str, needs: str):
-    raise SystemExit(
-        f"{what} is not ported yet: it needs {needs}, which batch3dmot_tpu_torch "
-        "does not have; run it with python -m batch3dmot_tpu.cli"
-    )
-
-
-_NUSCENES_TABLES = "the nuScenes tables (batch3dmot_tpu/data/nuscenes_tables.py)"
-_DETECTIONS = (
-    f"{_NUSCENES_TABLES} and the detections and their matching "
-    "(batch3dmot_tpu/data/detections.py)"
-)
-
-
 def _build_synthetic_scenes(cfg: Config, num_scenes: int, with_mods: bool):
     from batch3dmot_tpu_torch.data.synthetic import make_synthetic_scene
 
@@ -124,43 +112,141 @@ def _build_synthetic_scenes(cfg: Config, num_scenes: int, with_mods: bool):
     ]
 
 
-def cmd_build_graphs(args) -> None:
+def cmd_build_graphs(args) -> dict:
     cfg = _load_config(args)
     _device(args)
-    if not args.synthetic:
-        _not_ported("build-graphs from a nuScenes tree", _DETECTIONS)
     from batch3dmot_tpu_torch.graphs import build_scene_graphs
     from batch3dmot_tpu_torch.io import save_scene_graphs
 
     out_dir = _store_dir(cfg)
     window_len = cfg.graph_construction.batch_size_graph
     t0 = time.time()
-    total_windows = total_edges = n_scenes = n_skipped = 0
-    scenes = _build_synthetic_scenes(
-        cfg, args.synthetic, cfg.main.sensors_used.get("img", False)
-    )
-    for scene in scenes:
-        # restartable per scene: the skip is decided before the build
+    total_windows = total_edges = total_dets = n_scenes = 0
+    n_skipped = [0]
+    # host seconds per stage: tables and matching, modality extraction
+    # (filled by the scene loader), graph build, store write
+    stages = {"tables": 0.0, "modalities": 0.0, "graphs": 0.0, "write": 0.0}
+
+    def already_built(scene_token: str) -> bool:
+        # restartable per scene: the skip is decided before any modality
+        # extraction
         if args.skip_existing and os.path.exists(
-            os.path.join(out_dir, f"{scene.scene_token}_len{window_len}.b3d")
+            os.path.join(out_dir, f"{scene_token}_len{window_len}.b3d")
         ):
-            n_skipped += 1
+            n_skipped[0] += 1
+            return True
+        return False
+
+    if args.synthetic:
+        scenes = iter(
+            _build_synthetic_scenes(
+                cfg, args.synthetic, cfg.main.sensors_used.get("img", False)
+            )
+        )
+    else:
+        # streamed: one scene's detections and modality arrays at a time
+        scenes = _load_nuscenes_scenes(cfg, skip=already_built, stages=stages)
+
+    for scene in scenes:
+        if args.synthetic and already_built(scene.scene_token):
             continue
         n_scenes += 1
+        total_dets += scene.num_detections
+        t = time.perf_counter()
         windows = list(build_scene_graphs(scene, window_len, cfg.graph_construction))
+        stages["graphs"] += time.perf_counter() - t
         if not windows:
             continue
+        t = time.perf_counter()
         save_scene_graphs(
             windows, out_dir, metadata=scene.metadata,
             frame_tokens=scene.frame_tokens,
         )
+        stages["write"] += time.perf_counter() - t
         total_windows += len(windows)
         total_edges += sum(w.num_edges for w in windows)
     dt = time.time() - t0
     print(
-        f"build-graphs: {n_scenes} scenes ({n_skipped} skipped), "
+        f"build-graphs: {n_scenes} scenes ({n_skipped[0]} skipped), "
         f"{total_windows} windows, {total_edges} edges -> {out_dir} in {dt:.1f}s"
     )
+    print(
+        f"build-graphs: {total_dets} detections; host seconds "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+    )
+    return {"detections": total_dets, "seconds": dt, **stages}
+
+
+def _load_nuscenes_scenes(cfg: Config, skip=None, split: Optional[str] = None,
+                          stages: Optional[Dict[str, float]] = None):
+    """Generator over the SceneDetections of ONE split built from the tables
+    and the detector JSON (build-graphs: ``graph_construction.split``;
+    predict passes the eval split). The detection-JSON key comes from the
+    same split, so scenes are never matched against another split's file.
+
+    Streams one scene at a time and applies ``skip(scene_token)`` before the
+    per-detection modality extraction, so that a resume is cheap. With
+    ``stages``, the host seconds of the tables and matching and of the
+    modality extraction are added to its ``"tables"`` and ``"modalities"``
+    entries."""
+    from batch3dmot_tpu_torch.data.detections import (
+        load_detection_results,
+        scene_from_frames,
+    )
+    from batch3dmot_tpu_torch.data.nuscenes_tables import NuScenesTables
+
+    stages = stages if stages is not None else {"tables": 0.0, "modalities": 0.0}
+    t = time.perf_counter()
+    tables = NuScenesTables(cfg.paths.data, cfg.main.version)
+    split = split or cfg.graph_construction.split
+    split_key = "mini" if cfg.main.version == "v1.0-mini" else split
+    det_path = (
+        cfg.detections.get(cfg.main.detections, {}).get(split_key)
+        if cfg.detections
+        else None
+    )
+    if det_path is None:
+        raise SystemExit(
+            f"No detection JSON configured for detector={cfg.main.detections} "
+            f"split={split_key}; set detections.{cfg.main.detections}.{split_key}"
+        )
+    dets = load_detection_results(os.path.join(cfg.paths.detections_dir, det_path))
+    # raw modality features per detection, for the sensors the config
+    # enables only (poses-only configs skip the stage)
+    want = tuple(
+        m for m in ("img", "lidar", "radar") if cfg.main.sensors_used.get(m)
+    )
+    try:
+        metas = tables.scene_metas_for_split(split, cfg.paths.splits_json or None)
+    except KeyError as e:
+        raise SystemExit(str(e))
+    stages["tables"] += time.perf_counter() - t
+    for meta in metas:
+        if skip is not None and skip(meta["token"]):
+            continue
+        t = time.perf_counter()
+        toks, ego_t, ego_q = tables.scene_ego_poses(meta["token"])
+        gt = tables.scene_gt(meta["token"])
+        img = lidar = radar = cam_ok = None
+        if want:
+            from batch3dmot_tpu_torch.data.preprocess import extract_detection_modalities
+
+            t_mod = time.perf_counter()
+            img, lidar, radar, cam_ok = extract_detection_modalities(
+                tables, toks, dets, cfg, modalities=want
+            )
+            stages["modalities"] += time.perf_counter() - t_mod
+            t += time.perf_counter() - t_mod
+        scene = scene_from_frames(
+            meta["token"], toks, dets, gt, ego_t, ego_q,
+            cfg.graph_construction,
+            ego_rad_min=cfg.pointnet.ego_rad_min,
+            ego_rad_max=cfg.pointnet.ego_rad_max,
+            img=img, lidar=lidar, radar=radar,
+            camera_keep=cam_ok if "img" in want else None,
+        )
+        stages["tables"] += time.perf_counter() - t
+        yield scene
 
 
 def _load_stores(cfg: Config):
@@ -836,8 +922,6 @@ def _run_predict(
             f"--pipeline {pipeline} applies to the multimodal models; "
             f"'{model_kind}' has no frozen encoders (use --pipeline windows)"
         )
-    if pipeline == "device" and not synthetic:
-        _not_ported("predict --pipeline device from a nuScenes tree", _DETECTIONS)
     init_params_(model, torch.Generator().manual_seed(0))
     if checkpoint:
         _load_gnn_weights(model, checkpoint)
@@ -845,8 +929,14 @@ def _run_predict(
     enc_by_token: Dict[str, dict] = {}
     use_enc_cache = False
     if pipeline == "device":
-        # no stores: the scenes come straight from source data
-        scene_items = [(s, None) for s in _build_synthetic_scenes(cfg, synthetic, True)]
+        # no stores: the scenes come straight from source data; a nuScenes
+        # tree's eval split is streamed, one scene's modalities at a time
+        scenes = (
+            _build_synthetic_scenes(cfg, synthetic, True)
+            if synthetic
+            else _load_nuscenes_scenes(cfg, split=cfg.eval.eval_set)
+        )
+        scene_items = ((s, None) for s in scenes)
     else:
         paths = _load_stores(cfg)
         cached: Dict[str, dict] = {}
@@ -908,10 +998,12 @@ def _run_predict(
     # every pipeline sees the same values (the windows path pads them back
     # to float32 on the host)
     if not is_pose and cfg.predict.point_dtype == "float16":
-        scene_items = [
+        scene_items = (
             (_half(s), None if ws is None else [_half(w) for w in ws])
             for s, ws in scene_items
-        ]
+        )
+    if pipeline != "device":
+        scene_items = list(scene_items)
 
     if pipeline == "windows":
         scorer = make_scorer(model, device=device, mesh=mesh)
@@ -966,12 +1058,9 @@ def _run_predict(
     def _results_path(scene):
         return os.path.join(edge_scores_dir, f"{scene.scene_token}_results.json")
 
-    # the resume set is fixed before any scene is written (every rank sees
-    # the same one)
-    resumed = {
-        s.scene_token for s, _ in scene_items
-        if skip_existing and os.path.exists(_results_path(s))
-    }
+    def _resumed(scene) -> bool:
+        # checked as the scene is staged, before its own results can exist
+        return skip_existing and os.path.exists(_results_path(scene))
 
     def _items():
         """('cached', scene) singles and ('group', [(scene, windows), ...])
@@ -979,7 +1068,7 @@ def _run_predict(
         that a resumed run keeps its numbering)."""
         buf = []
         for scene, windows in scene_items:
-            if scene.scene_token in resumed:
+            if _resumed(scene):
                 if buf:
                     yield ("group", buf)
                     buf = []
@@ -1233,12 +1322,64 @@ def _scene_from_store(path: str, windows, with_modalities: bool = False):
     )
 
 
-def cmd_preprocess(args) -> None:
-    _not_ported(
-        "preprocess",
-        f"{_NUSCENES_TABLES} and the L2 preprocessing "
-        "(batch3dmot_tpu/data/preprocess.py:41-504, data/modality.py)",
+def cmd_preprocess(args) -> dict:
+    """The L2 modality preprocessing: per-annotation artifacts for encoder
+    training, per modality, skipped with ``--skip-existing`` where its anns
+    JSON exists. Returns the annotation count and seconds per modality
+    written."""
+    cfg = _load_config(args)
+    from batch3dmot_tpu_torch.data.nuscenes_tables import NuScenesTables
+    from batch3dmot_tpu_torch.data.preprocess import (
+        generate_image_annotations,
+        preprocess_lidar_annotations,
+        preprocess_radar_annotations,
     )
+
+    tables = NuScenesTables(cfg.paths.data, cfg.main.version)
+    pre = cfg.paths.preprocessed
+    os.makedirs(pre, exist_ok=True)
+    wanted = ("img", "lidar", "radar") if args.modality == "all" else (args.modality,)
+
+    def done(kind):
+        return os.path.join(pre, f"processed_{kind}_anns.json")
+
+    def need_img_anns(kind):
+        # lidar and radar membership follows the image-annotation records
+        if not os.path.exists(done("img")):
+            raise SystemExit(
+                f"{kind} preprocessing needs processed_img_anns.json "
+                "(dataset membership + camera->radar channels); run "
+                "`preprocess --modality img` first"
+            )
+        with open(done("img")) as f:
+            return json.load(f)
+
+    sj = cfg.paths.splits_json or None
+    makers = {
+        "img": lambda: generate_image_annotations(tables, cfg, splits_json=sj),
+        "lidar": lambda: preprocess_lidar_annotations(
+            tables, os.path.join(pre, "lidar"), need_img_anns("lidar"), cfg,
+            splits_json=sj,
+        ),
+        "radar": lambda: preprocess_radar_annotations(
+            tables, os.path.join(pre, "radar"), need_img_anns("radar"), cfg,
+            splits_json=sj,
+        ),
+    }
+    written = {}
+    t0 = time.time()
+    for kind in ("img", "lidar", "radar"):
+        if kind not in wanted or (args.skip_existing and os.path.exists(done(kind))):
+            continue
+        t = time.perf_counter()
+        anns = makers[kind]()
+        with open(done(kind), "w") as f:
+            json.dump(anns, f)
+        n = sum(len(v) for v in anns.values())
+        written[kind] = {"annotations": n, "seconds": time.perf_counter() - t}
+        print(f"preprocess {kind}: {n} annotations -> {done(kind)}")
+    print(f"preprocess: done in {time.time() - t0:.1f}s -> {pre}")
+    return written
 
 
 def cmd_concat_jsons(args) -> None:
@@ -1262,14 +1403,57 @@ def cmd_concat_jsons(args) -> None:
 
 
 def cmd_validate_data(args) -> None:
-    _not_ported(
-        "validate-data",
-        f"{_NUSCENES_TABLES} and the data doctor (batch3dmot_tpu/data/validate.py)",
+    """The data doctor over the configured data plane (tables, splits JSON,
+    detection JSON) before any expensive stage. Exit code 1 on errors, and
+    on warnings with ``--strict``."""
+    cfg = _load_config(args)
+    from batch3dmot_tpu_torch.data.validate import validate_config_data
+
+    findings = validate_config_data(cfg, split=args.split)
+    for f in findings:
+        print(f)
+    n_err = sum(1 for f in findings if f.level == "error")
+    n_warn = sum(1 for f in findings if f.level == "warn")
+    print(
+        f"validate-data: {n_err} error(s), {n_warn} warning(s) for "
+        f"dataroot={cfg.paths.data} version={cfg.main.version} "
+        f"detector={cfg.main.detections}"
     )
+    if n_err or (args.strict and n_warn):
+        raise SystemExit(1)
 
 
 def cmd_export_gt(args) -> None:
-    _not_ported("export-gt", _NUSCENES_TABLES)
+    """GT tracking boxes of the eval split from the nuScenes tables, as the
+    JSON ``eval --gt`` reads ({"boxes": [...], "frames": [...]}): exporting
+    every scene would make the scorer count the other splits' frames as
+    missed tracks."""
+    cfg = _load_config(args)
+    from batch3dmot_tpu_torch.config import TRACKING_CLASS_NAMES
+    from batch3dmot_tpu_torch.data.nuscenes_tables import NuScenesTables
+
+    tables = NuScenesTables(cfg.paths.data, cfg.main.version)
+    boxes, frames = [], []
+    try:
+        metas = tables.scene_metas_for_split(cfg.eval.eval_set, cfg.paths.splits_json or None)
+    except KeyError as e:
+        raise SystemExit(str(e))
+    for scene in metas:
+        for tok in tables.scene_sample_tokens(scene["token"]):
+            frames.append(tok)
+            gt = tables.gt_frame_boxes(tok)
+            for i in range(len(gt)):
+                boxes.append(
+                    {
+                        "sample_token": tok,
+                        "translation": gt.center[i].tolist(),
+                        "tracking_name": TRACKING_CLASS_NAMES[int(gt.class_id[i])],
+                        "instance": gt.instance[i],
+                    }
+                )
+    with open(args.out, "w") as f:
+        json.dump({"boxes": boxes, "frames": frames}, f)
+    print(f"export-gt: {len(boxes)} boxes over {len(frames)} frames -> {args.out}")
 
 
 def cmd_import_checkpoint(args) -> None:
@@ -1323,11 +1507,17 @@ def cmd_eval(args) -> None:
     if not args.devkit and not args.gt:
         raise SystemExit("eval: --gt is required (or pass --devkit)")
     if args.devkit:
-        _not_ported(
-            "eval --devkit",
-            "the official nuScenes TrackingEval bridge "
-            "(batch3dmot_tpu/eval/nuscenes_eval.py) and a nuScenes tree",
-        )
+        # the official nuScenes TrackingEval (nuscenes-devkit and the tree)
+        from batch3dmot_tpu_torch.eval.nuscenes_eval import devkit_available, run_official_eval
+
+        if not devkit_available():
+            raise SystemExit(
+                "nuscenes-devkit is not installed; re-run without --devkit "
+                "to use the native AMOTA scorer"
+            )
+        metrics = run_official_eval(submission, _load_config(args))
+        print(json.dumps(metrics))
+        return metrics
 
     from batch3dmot_tpu_torch.eval.tracking_metrics import evaluate_tracking, json_safe
 
@@ -1528,7 +1718,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="GT boxes JSON (export-gt output); required unless --devkit")
     p.add_argument("--devkit", action="store_true",
                    help="score with the official nuScenes TrackingEval "
-                        "instead of the native scorer (not ported)")
+                        "(needs nuscenes-devkit + dataset) instead of the "
+                        "native scorer")
     p.set_defaults(fn=cmd_eval)
 
     p = sub.add_parser("import-checkpoint")

@@ -178,7 +178,37 @@ Phases, each fatal on failure:
      near-ties of the two paths' averages, counted), the device pipeline
      against the encoded predict the same way; (4h) each call's wall time,
      predict's rate lines, and the train-gnn epoch beside a ``fit_device``
-     epoch of the same dataset through the Python API, in turns.
+     epoch of the same dataset through the Python API, in turns;
+  3k. the nuScenes data plane through the CLI (in this process, ``--set``
+     overrides only) on a v1.0-trainval-shaped tree written from a seed
+     without PIL (``write_nuscenes_tree``: 2 scenes of 40 keyframes, one
+     train and one val by a splits JSON; about 25 annotated objects per
+     keyframe in all 7 tracking classes plus non-tracking ones; six
+     cameras with placeholder images; LIDAR_TOP at 34,720 points and five
+     18-field radars, chained so that 10 and 6 sweeps are full; a
+     Megvii-format detector at about 1.3x GT): ``validate-data --strict``,
+     ``preprocess --modality all`` (a second run byte-identical,
+     ``--skip-existing`` writing nothing, every lidar artifact inside its
+     box), ``train-pointnet`` and ``train-radarnet --device-dataset``,
+     ``build-graphs`` (train and val; GT matches and positive edges in every
+     class present), ``train-gnn --model mm --encoded`` with both encoders
+     grafted, ``predict --pipeline encoded`` and ``device`` on the val split
+     (held to each other as in 3j), ``export-gt``, ``eval``, ``eval
+     --devkit`` (exits with the devkit message); each call's kernel
+     launches at their exact count; then (``nuscenes_model_checks``), for
+     train-gnn's checkpoint and for a model whose scores move with the
+     embeddings (``responsive_model``; lidar-zeroed features put edges
+     outside the tolerance), the val store's windows through the kernel
+     against the plain version, one train-store batch through the training
+     pair against autograd of the plain version, the device pipeline on
+     the scene it loaded from the tree (equal to the store's) against the
+     encoded scorer, encodings and averages, and the ``bfloat16`` encode
+     against its definition (point encoders in float32 on bf16-rounded
+     weights and inputs; an unrounded control outside), scores within 0.06
+     of float32; (4i) each call's wall time, preprocess annotations/s per
+     modality, the lidar and radar preprocessors with and without the
+     last-sample memo in turns, build-graphs detections/s by stage,
+     predict's rate lines, the float32 and bfloat16 encodes in turns.
 
 Prints an ``{"encoders": [...]}`` line (4f's timings and 3h's checks),
 the card's name and power limit, a ``{"kernels": [...]}`` line and, last,
@@ -208,6 +238,13 @@ import numpy as np
 # relative tolerance and absolute floor for kernel vs plain version: both
 # are float32; sums run in another order (per-node projections, CSR order)
 RTOL, ATOL = 2e-4, 2e-5
+# 4i times the lidar and radar preprocessors with and without the port's
+# last-sample memo on this many image annotations of the 3k tree
+MEMO_TIME_ANNS = 100
+# 3k's responsive model: its GNN weights at this many times init_params_'s
+# range (1.0 gives nearly constant scores; 2.0 saturates the sigmoid
+# before the classifier's last layer is rescaled)
+RESPONSIVE_GAIN = 1.75
 # gradients: the JAX package's own gradient tolerance (f32 sums over up to
 # 32k edges in another order); atol is relative to max|plain| per tensor.
 # A ReLU whose f32 pre-activation lies within rounding of zero takes
@@ -461,6 +498,24 @@ def compare_grads(got, ref, ref64_fn, what):
         tied.append((k, outside, r.numel(), rel_l2, rms(g), rms(r)))
         assert rel_l2 <= MAX_REL_L2, (what, k, rel_l2)
     return worst, tied
+
+
+def plain_scorer(model):
+    """A SceneEncodedScorer of ``model`` whose window forwards run the plain
+    message-passing version instead of the kernel."""
+    from batch3dmot_tpu_torch.infer.predict import SceneEncodedScorer
+    from batch3dmot_tpu_torch.ops.fused_mp import extract_mp_params, fused_mp_scores_plain
+
+    class PlainScorer(SceneEncodedScorer):
+        def _forward(self, batch, det_index, enc):
+            x_img, pn, rn, lp, rp = (t[det_index] for t in enc)
+            m = self.model
+            x0, e0, att, _ = m.pre_message_passing(batch, x_img, pn, rn, lp, rp)
+            flat, meta = extract_mp_params(m, True, m.node_dim, m.edge_dim)
+            return fused_mp_scores_plain(x0, e0, att, batch.edge_src, batch.edge_dst,
+                                         batch.edge_mask, flat, meta, m.depth)
+
+    return PlainScorer(model)
 
 
 @contextlib.contextmanager
@@ -1873,6 +1928,1059 @@ def cli_phase(card):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---- the nuScenes data plane (phase 3k, timing 4i) -----------------------------
+
+# sensor rigs as nuScenes' (channel, translation on the ego, yaw): the six
+# cameras (optical axis yaw; focal length of the 1600 x 900 canvas), the
+# five radars and LIDAR_TOP (mounted turned by -90 degrees)
+NUSC_CAMERAS = (
+    ("CAM_FRONT", (1.70, 0.02, 1.51), 0.0, 1266.4),
+    ("CAM_FRONT_RIGHT", (1.55, -0.49, 1.50), -0.96, 1260.8),
+    ("CAM_FRONT_LEFT", (1.52, 0.49, 1.51), 0.96, 1272.6),
+    ("CAM_BACK", (0.03, 0.0, 1.57), np.pi, 809.2),
+    ("CAM_BACK_LEFT", (1.04, 0.71, 1.56), 1.92, 1256.7),
+    ("CAM_BACK_RIGHT", (1.03, -0.48, 1.57), -1.92, 1259.5),
+)
+NUSC_RADARS = (
+    ("RADAR_FRONT", (3.41, 0.0, 0.50), 0.0),
+    ("RADAR_FRONT_LEFT", (2.42, 0.80, 0.50), np.pi / 2),
+    ("RADAR_FRONT_RIGHT", (2.42, -0.80, 0.50), -np.pi / 2),
+    ("RADAR_BACK_LEFT", (-0.56, 0.61, 0.50), 3.05),
+    ("RADAR_BACK_RIGHT", (-0.56, -0.63, 0.50), -3.05),
+)
+NUSC_LIDAR = ("LIDAR_TOP", (0.94, 0.0, 1.84), -np.pi / 2)
+# the devkit's 18-field radar .pcd layout (name, size, type)
+RADAR_FIELDS = (
+    ("x", 4, "F"), ("y", 4, "F"), ("z", 4, "F"), ("dyn_prop", 1, "I"), ("id", 2, "I"),
+    ("rcs", 4, "F"), ("vx", 4, "F"), ("vy", 4, "F"), ("vx_comp", 4, "F"),
+    ("vy_comp", 4, "F"), ("is_quality_valid", 1, "I"), ("ambig_state", 1, "I"),
+    ("x_rms", 1, "I"), ("y_rms", 1, "I"), ("invalid_state", 1, "I"), ("pdh0", 1, "I"),
+    ("vx_rms", 1, "I"), ("vy_rms", 1, "I"),
+)
+# tracking classes (raw category, detection name, w/l/h, speed m/s, share
+# of the objects)
+# after nuScenes trainval's mix, and non-tracking categories the data plane
+# must filter out
+NUSC_CLASSES = (
+    ("vehicle.car", "car", (1.95, 4.6, 1.7), 8.0, 0.44),
+    ("human.pedestrian.adult", "pedestrian", (0.67, 0.73, 1.77), 1.3, 0.22),
+    ("vehicle.truck", "truck", (2.5, 6.9, 2.8), 7.0, 0.08),
+    ("vehicle.trailer", "trailer", (2.9, 12.0, 3.9), 6.0, 0.04),
+    ("vehicle.bus.rigid", "bus", (2.9, 11.0, 3.5), 7.0, 0.04),
+    ("vehicle.bicycle", "bicycle", (0.6, 1.7, 1.3), 4.0, 0.08),
+    ("vehicle.motorcycle", "motorcycle", (0.8, 2.1, 1.5), 7.0, 0.10),
+)
+NUSC_OTHER = (("movable_object.barrier", (2.5, 0.5, 1.0)),
+              ("movable_object.trafficcone", (0.4, 0.4, 1.1)),
+              ("static_object.bicycle_rack", (2.0, 6.0, 1.2)))
+NUSC_T0_US = 1_533_151_603_547_590  # a trainval-era timestamp
+
+
+def write_nuscenes_tree(root, seed=0, scenes=2, keyframes=40, objects=50, others=8,
+                        lidar_points=34720, radar_points=100, lidar_hz=20, radar_hz=12):
+    """A nuScenes-shaped v1.0-trainval tree under ``root`` from a numpy
+    seed, written without PIL: ``scenes`` scenes of ``keyframes`` samples at
+    2 Hz (the first ``scenes // 2`` in the train split, the rest in val, by
+    a splits JSON); ``objects`` tracked objects per scene along a gently
+    curving road (about 25 annotated per keyframe within 55 m of the ego,
+    all 7 tracking classes) and ``others`` of non-tracking categories; six
+    cameras with nuScenes-like calibrations, 1600 x 900 canvases and small
+    placeholder JPEG files; LIDAR_TOP ``.pcd.bin`` sweeps of
+    ``lidar_points`` points at ``lidar_hz`` (object returns inside their
+    boxes plus ground), five radars' 18-field binary ``.pcd`` sweeps of
+    about ``radar_points`` returns at ``radar_hz``, each sensor's sweeps
+    chained by ``prev`` from before the first keyframe, so that
+    ``nsweeps_lidar=10`` and ``nsweeps_radar=6`` take full sweeps; and per
+    split a Megvii-format detector JSON with about 1.3x the GT boxes (10%
+    missed, false positives, non-tracking detections, noisy boxes and
+    scores). Non-key sweeps reuse a pool of ground-only files per scene.
+    Returns dict(root, version, splits_json, det_dir, the sizes, and the
+    counts of annotations, tracking-class annotations and detections)."""
+    import os
+
+    from batch3dmot_tpu_torch import geometry as geo
+
+    rng = np.random.default_rng(seed)
+    version = "v1.0-trainval"
+    tdir = os.path.join(root, version)
+    os.makedirs(tdir, exist_ok=True)
+    for d in ("samples", "sweeps"):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    tables = {k: [] for k in ("scene", "sample", "sample_data", "ego_pose", "calibrated_sensor",
+                              "sensor", "sample_annotation", "instance", "category", "attribute",
+                              "visibility", "log", "map")}
+    tables["visibility"] = [{"token": str(i), "level": lvl, "description": ""}
+                            for i, lvl in enumerate(("v0-40", "v40-60", "v60-80", "v80-100"), 1)]
+    cat_tok = {}
+    det_name = {c[0]: c[1] for c in NUSC_CLASSES}
+    share = [c[4] for c in NUSC_CLASSES]
+    for name in [c[0] for c in NUSC_CLASSES] + [o[0] for o in NUSC_OTHER]:
+        cat_tok[name] = f"cat_{len(cat_tok)}"
+        tables["category"].append({"token": cat_tok[name], "name": name, "description": ""})
+    base_q = np.array([0.5, -0.5, 0.5, -0.5])  # optical z along the ego's +x
+    rigs = {}
+    for ch, t, yaw, f in NUSC_CAMERAS:
+        q = geo.quat_multiply(geo.yaw_to_quat(yaw), base_q)
+        rigs[ch] = (np.array(t), q, [[f, 0.0, 800.0], [0.0, f, 450.0], [0.0, 0.0, 1.0]], "camera")
+    for ch, t, yaw in NUSC_RADARS:
+        rigs[ch] = (np.array(t), geo.yaw_to_quat(yaw), [], "radar")
+    rigs[NUSC_LIDAR[0]] = (np.array(NUSC_LIDAR[1]), geo.yaw_to_quat(NUSC_LIDAR[2]), [], "lidar")
+    for ch, (t, q, k, modality) in rigs.items():
+        tables["sensor"].append({"token": f"sen_{ch}", "channel": ch, "modality": modality})
+        tables["calibrated_sensor"].append({
+            "token": f"cs_{ch}", "sensor_token": f"sen_{ch}", "translation": t.tolist(),
+            "rotation": q.tolist(), "camera_intrinsic": k})
+
+    kappa, speed = 0.002, 5.0  # the road's curvature (1/m); the ego's speed (m/s)
+
+    def road(s, h0, p0):
+        h = h0 + kappa * s
+        p = p0 + np.stack([np.sin(h) - np.sin(h0), -(np.cos(h) - np.cos(h0))], -1) / kappa
+        return p, h
+
+    def to_frame(pts, t, q):
+        """Global (or parent-frame) points [n, 3] into a frame at (t, q)."""
+        return (pts - t) @ geo.quat_rotation_matrix(q)
+
+    n_ann = n_track = n_det = 0
+    splits = {"train": [], "val": []}
+    det_results = {"train": {}, "val": {}}
+    for sc in range(scenes):
+        name = f"scene-{sc + 1:04d}"
+        split = "train" if sc < max(1, scenes // 2) else "val"
+        splits[split].append(name)
+        p0, h0 = np.array([600.0 + 300 * sc, 1600.0]), 0.3 + 0.5 * sc
+        # objects: (category, w/l/h, arc-length start, speed, lateral offset,
+        # against the road direction)
+        objs = []
+        for o in range(objects + others):
+            if o < objects:
+                k = o if o < len(NUSC_CLASSES) else rng.choice(len(NUSC_CLASSES), p=share)
+                cat, _, size, v, _ = NUSC_CLASSES[k]
+                ped = cat.startswith("human")
+                lane = rng.choice([-8.0, 8.0]) if ped else rng.choice([-5.4, -1.8, 1.8, 5.4])
+                flip = lane > 0 if not ped else bool(rng.random() < 0.5)
+                v = 0.0 if (not ped and rng.random() < 0.2) else v * rng.uniform(0.6, 1.2)
+                if not ped and v == 0.0:
+                    lane = rng.choice([-9.0, 9.0])  # parked
+            else:
+                cat, size = NUSC_OTHER[o % len(NUSC_OTHER)]
+                v, lane, flip = 0.0, rng.choice([-10.5, 10.5]), False
+            wlh = np.array(size) * rng.uniform(0.9, 1.1, 3)
+            objs.append((cat, wlh, rng.uniform(-60, speed * keyframes / 2 + 60), v, lane, flip))
+
+        def obj_state(o, t):
+            cat, wlh, s0, v, lane, flip = objs[o]
+            s = s0 + (-v if flip else v) * t
+            p, h = road(np.array(s), h0, p0)
+            n = np.array([-np.sin(h), np.cos(h)])
+            center = np.array([*(p + lane * n), wlh[2] / 2])
+            yaw = h + (np.pi if flip else 0.0)
+            vel = np.array([np.cos(h), np.sin(h), 0.0]) * (-v if flip else v)
+            return center, wlh, yaw, vel
+
+        def ego_state(t):
+            p, h = road(np.array(speed * t), h0, p0)
+            return np.array([*p, 0.0]), geo.yaw_to_quat(h), h
+
+        inst_toks = [f"sc{sc}_inst{o}" for o in range(len(objs))]
+        sample_toks = [f"sc{sc}_s{i}" for i in range(keyframes)]
+        chain_last = {}  # channel -> last sample_data token (for prev/next)
+
+        def add_sd(ch, t, sample_tok, key, filename, width=0, height=0):
+            tok = f"sc{sc}_sd_{ch}_{len(tables['sample_data'])}"
+            ep = f"sc{sc}_ep{len(tables['ego_pose'])}"
+            et, eq, _ = ego_state(t)
+            ts = NUSC_T0_US + sc * 10**8 + int(round(t * 1e6))
+            tables["ego_pose"].append({"token": ep, "timestamp": ts, "rotation": eq.tolist(),
+                                       "translation": et.tolist()})
+            prev = chain_last.get(ch, "")
+            if prev:
+                sds_by_tok[prev]["next"] = tok
+            rec = {"token": tok, "sample_token": sample_tok, "ego_pose_token": ep,
+                   "calibrated_sensor_token": f"cs_{ch}", "timestamp": ts,
+                   "fileformat": filename.rsplit(".", 1)[-1], "is_key_frame": key,
+                   "height": height, "width": width, "filename": filename,
+                   "prev": prev, "next": ""}
+            tables["sample_data"].append(rec)
+            sds_by_tok[tok] = rec
+            chain_last[ch] = tok
+            return tok
+
+        sds_by_tok, anns_by_tok = {}, {}
+
+        def ground(n):
+            r = 3.0 + 67.0 * rng.random(n) ** 1.5
+            a = rng.uniform(-np.pi, np.pi, n)
+            return np.stack([r * np.cos(a), r * np.sin(a), rng.normal(-0.15, 0.03, n)], 1)
+
+        def lidar_rows(ego_pts):
+            """Ego-frame points -> LIDAR_TOP .pcd.bin rows (x, y, z,
+            intensity, ring) in the sensor frame."""
+            t_l, q_l = rigs["LIDAR_TOP"][:2]
+            xyz = to_frame(ego_pts, t_l, q_l)
+            return np.hstack([xyz, rng.uniform(0, 100, (len(xyz), 1)),
+                              rng.integers(0, 32, (len(xyz), 1))]).astype(np.float32)
+
+        def radar_bytes(rows):
+            n = len(rows)
+            dtype = np.dtype([(f, {("F", 4): "<f4", ("I", 1): "i1", ("I", 2): "<i2"}[(t, s)])
+                              for f, s, t in RADAR_FIELDS])
+            arr = np.zeros(n, dtype)
+            for i, (f, _, _) in enumerate(RADAR_FIELDS):
+                arr[f] = rows[:, i]
+            head = ("# .PCD v0.7 - Point Cloud Data file format\nVERSION 0.7\n"
+                    f"FIELDS {' '.join(f for f, _, _ in RADAR_FIELDS)}\n"
+                    f"SIZE {' '.join(str(s) for _, s, _ in RADAR_FIELDS)}\n"
+                    f"TYPE {' '.join(t for _, _, t in RADAR_FIELDS)}\n"
+                    f"COUNT {' '.join('1' for _ in RADAR_FIELDS)}\n"
+                    f"WIDTH {n}\nHEIGHT 1\nVIEWPOINT 0 0 0 1 0 0 0\nPOINTS {n}\nDATA binary\n")
+            return head.encode() + arr.tobytes()
+
+        def radar_clutter(n):
+            rows = np.zeros((n, 18))
+            r, a = rng.uniform(5, 80, n), rng.uniform(-1.2, 1.2, n)
+            rows[:, 0], rows[:, 1] = r * np.cos(a), r * np.sin(a)
+            rows[:, 2] = rng.normal(0, 0.5, n)
+            rows[:, 3] = rng.integers(0, 8, n)  # 7: filtered by the devkit's defaults
+            rows[:, 4] = rng.integers(0, 120, n)
+            rows[:, 5] = rng.normal(5, 5, n)
+            rows[:, 6:10] = rng.normal(0, 1, (n, 4))
+            rows[:, 10] = 1
+            rows[:, 11] = np.where(rng.random(n) < 0.8, 3, rng.integers(0, 3, n))
+            rows[:, 12:14] = rng.integers(0, 20, (n, 2))
+            rows[:, 14] = np.where(rng.random(n) < 0.85, 0, rng.integers(1, 18, n))
+            rows[:, 15:18] = rng.integers(0, 8, (n, 3))
+            return rows
+
+        # pools of ground-only files for the non-key sweeps
+        pool_lidar = []
+        for j in range(lidar_hz // 2 - 1):
+            fn = f"sweeps/LIDAR_TOP/sc{sc}_pool{j}.pcd.bin"
+            os.makedirs(os.path.join(root, os.path.dirname(fn)), exist_ok=True)
+            lidar_rows(ground(lidar_points)).tofile(os.path.join(root, fn))
+            pool_lidar.append(fn)
+        pool_radar = {}
+        for ch, _, _ in NUSC_RADARS:
+            os.makedirs(os.path.join(root, "sweeps", ch), exist_ok=True)
+            pool_radar[ch] = []
+            for j in range(radar_hz // 2 - 1):
+                fn = f"sweeps/{ch}/sc{sc}_pool{j}.pcd"
+                with open(os.path.join(root, fn), "wb") as fh:
+                    fh.write(radar_bytes(radar_clutter(radar_points)))
+                pool_radar[ch].append(fn)
+        for ch, _, _, _ in NUSC_CAMERAS:
+            os.makedirs(os.path.join(root, "samples", ch), exist_ok=True)
+            with open(os.path.join(root, "samples", ch, f"sc{sc}.jpg"), "wb") as fh:
+                fh.write(b"\xff\xd8\xff\xe0" + bytes(60) + b"\xff\xd9")  # no decode happens
+        for ch in ("LIDAR_TOP",) + tuple(r[0] for r in NUSC_RADARS):
+            os.makedirs(os.path.join(root, "samples", ch), exist_ok=True)
+
+        last_ann = {}
+        ann_count = {}
+        for i, stok in enumerate(sample_toks):
+            t = 0.5 * i
+            # the non-key sweeps since the previous keyframe (or lead-in)
+            for j in range(lidar_hz // 2 - 1, 0, -1):
+                add_sd("LIDAR_TOP", t - j / lidar_hz, stok, False, pool_lidar[j - 1])
+            for ch, _, _ in NUSC_RADARS:
+                for j in range(radar_hz // 2 - 1, 0, -1):
+                    add_sd(ch, t - j / radar_hz, stok, False, pool_radar[ch][j - 1])
+            et, eq, eh = ego_state(t)
+            tables["sample"].append({
+                "token": stok, "timestamp": NUSC_T0_US + sc * 10**8 + int(round(t * 1e6)),
+                "prev": sample_toks[i - 1] if i else "",
+                "next": sample_toks[i + 1] if i + 1 < keyframes else "", "scene_token": f"sc{sc}"})
+            # objects in range at this keyframe
+            lidar_obj, radar_obj = [], {ch: [] for ch, _, _ in NUSC_RADARS}
+            frame_anns = []
+            for o in range(len(objs)):
+                center, wlh, yaw, vel = obj_state(o, t)
+                d = float(np.linalg.norm(center[:2] - et[:2]))
+                if d > 55.0:
+                    continue
+                c_ego = to_frame(center[None], et, eq)[0]
+                n_l = 0 if rng.random() < 0.1 else int(min(600, 6000 / max(d, 4.0) ** 1.5))
+                if n_l:
+                    local = (rng.random((n_l, 3)) - 0.5) * wlh[[1, 0, 2]] * 0.95
+                    rot = geo.quat_rotation_matrix(geo.yaw_to_quat(yaw - eh))
+                    lidar_obj.append(local @ rot.T + c_ego)
+                n_r = 0
+                for ch, rt, ryaw in NUSC_RADARS:
+                    c_r = to_frame(c_ego[None], np.array(rt), geo.yaw_to_quat(ryaw))[0]
+                    if not (0 < c_r[0] < 70 and abs(np.arctan2(c_r[1], c_r[0])) < 1.2):
+                        continue
+                    k = int(rng.integers(1, 4))
+                    local = (rng.random((k, 3)) - 0.5) * wlh[[1, 0, 2]] * 0.9
+                    rot = geo.quat_rotation_matrix(geo.yaw_to_quat(yaw - eh - ryaw))
+                    rows = np.zeros((k, 18))
+                    rows[:, 0:3] = local @ rot.T + c_r
+                    v_r = geo.quat_rotation_matrix(geo.yaw_to_quat(-(eh + ryaw)))[:2, :2] @ vel[:2]
+                    rows[:, 3] = 0 if np.linalg.norm(vel) > 0.5 else 1
+                    rows[:, 4] = rng.integers(0, 120, k)
+                    rows[:, 5] = rng.normal(10, 4, k)
+                    rows[:, 6:8] = v_r - [speed, 0.0]
+                    rows[:, 8:10] = v_r
+                    rows[:, 10] = 1
+                    rows[:, 11] = 3
+                    rows[:, 12:14] = rng.integers(0, 20, (k, 2))
+                    rows[:, 15:18] = rng.integers(0, 8, (k, 3))
+                    radar_obj[ch].append(rows)
+                    n_r += k
+                inst = inst_toks[o]
+                atok = f"sc{sc}_ann{o}_{i}"
+                prev = last_ann.get(inst, "")
+                ann = {"token": atok, "sample_token": stok, "instance_token": inst,
+                       "visibility_token": str(int(rng.integers(1, 5))), "attribute_tokens": [],
+                       "translation": center.tolist(), "size": wlh.tolist(),
+                       "rotation": geo.yaw_to_quat(yaw).tolist(),
+                       "prev": prev, "next": "",
+                       "num_lidar_pts": n_l, "num_radar_pts": n_r}
+                if prev:
+                    anns_by_tok[prev]["next"] = atok
+                anns_by_tok[atok] = ann
+                last_ann[inst] = atok
+                ann_count[inst] = ann_count.get(inst, 0) + 1
+                tables["sample_annotation"].append(ann)
+                frame_anns.append((o, center, wlh, yaw, vel, d))
+                n_ann += 1
+                n_track += objs[o][0] in det_name
+            # keyframe files: LIDAR_TOP, the radars, the cameras
+            pts = np.vstack(lidar_obj + [np.zeros((0, 3))])
+            pts = np.vstack([pts, ground(max(0, lidar_points - len(pts)))])[:lidar_points]
+            fn = f"samples/LIDAR_TOP/sc{sc}_s{i}.pcd.bin"
+            lidar_rows(pts).tofile(os.path.join(root, fn))
+            add_sd("LIDAR_TOP", t, stok, True, fn)
+            for ch, _, _ in NUSC_RADARS:
+                rows = np.vstack(radar_obj[ch] + [np.zeros((0, 18))])
+                rows = np.vstack([rows, radar_clutter(max(0, radar_points - len(rows)))])
+                fn = f"samples/{ch}/sc{sc}_s{i}.pcd"
+                with open(os.path.join(root, fn), "wb") as fh:
+                    fh.write(radar_bytes(rows))
+                add_sd(ch, t, stok, True, fn)
+            for ch, _, _, _ in NUSC_CAMERAS:
+                add_sd(ch, t, stok, True, f"samples/{ch}/sc{sc}.jpg", 1600, 900)
+            # the detector: tracking-class GT boxes, 10% missed, noisy; false
+            # positives; non-tracking detections the loader drops
+            dets = []
+            for o, center, wlh, yaw, vel, d in frame_anns:
+                cat = objs[o][0]
+                if cat not in det_name or rng.random() < 0.1:
+                    continue
+                sig = 0.15 * (1 + d / 40)
+                dets.append({
+                    "sample_token": stok,
+                    "translation": (center + rng.normal(0, sig, 3) * [1, 1, 0.3]).tolist(),
+                    "size": (wlh * rng.normal(1, 0.05, 3)).tolist(),
+                    "rotation": geo.yaw_to_quat(yaw + rng.normal(0, 0.08)).tolist(),
+                    "velocity": (vel[:2] + rng.normal(0, 0.4, 2)).tolist(),
+                    "detection_name": det_name[cat],
+                    "detection_score": float(rng.uniform(0.3, 0.95)),
+                    "attribute_name": ""})
+            n_gt = len(dets)
+            for _ in range(int(round(0.4 * n_gt))):
+                cat, name_, size, _, _ = NUSC_CLASSES[rng.choice(len(NUSC_CLASSES), p=share)]
+                r, a = rng.uniform(3, 50), rng.uniform(-np.pi, np.pi)
+                c = et + [r * np.cos(a), r * np.sin(a), size[2] / 2]
+                dets.append({
+                    "sample_token": stok, "translation": c.tolist(), "size": list(size),
+                    "rotation": geo.yaw_to_quat(rng.uniform(-np.pi, np.pi)).tolist(),
+                    "velocity": rng.normal(0, 1, 2).tolist(), "detection_name": name_,
+                    "detection_score": float(rng.uniform(0.05, 0.5)), "attribute_name": ""})
+            for _ in range(3):
+                dets.append({
+                    "sample_token": stok, "translation": (et + [8.0, 11.0, 0.5]).tolist(),
+                    "size": [0.5, 2.5, 1.0], "rotation": [1.0, 0.0, 0.0, 0.0],
+                    "velocity": [0.0, 0.0], "detection_name": "barrier",
+                    "detection_score": float(rng.uniform(0.1, 0.9)), "attribute_name": ""})
+            det_results[split][stok] = dets
+            n_det += n_gt + int(round(0.4 * n_gt))
+        for o, inst in enumerate(inst_toks):
+            if inst not in ann_count:
+                continue
+            first = next(a for a in tables["sample_annotation"] if a["instance_token"] == inst)
+            last = last_ann[inst]
+            tables["instance"].append({
+                "token": inst, "category_token": cat_tok[objs[o][0]],
+                "nbr_annotations": ann_count[inst], "first_annotation_token": first["token"],
+                "last_annotation_token": last})
+        tables["log"].append({"token": f"log{sc}", "logfile": "", "vehicle": "n015",
+                              "date_captured": "2018-07-24", "location": "singapore-onenorth"})
+        tables["scene"].append({
+            "token": f"sc{sc}", "log_token": f"log{sc}", "nbr_samples": keyframes,
+            "first_sample_token": sample_toks[0], "last_sample_token": sample_toks[-1],
+            "name": name, "description": "fabricated"})
+    for name, rows in tables.items():
+        with open(os.path.join(tdir, f"{name}.json"), "w") as fh:
+            json.dump(rows, fh)
+    splits_json = os.path.join(root, "splits.json")
+    with open(splits_json, "w") as fh:
+        json.dump(splits, fh)
+    det_dir = os.path.join(root, "detections")
+    os.makedirs(os.path.join(det_dir, "megvii"), exist_ok=True)
+    meta = {"use_camera": False, "use_lidar": True, "use_radar": False, "use_map": False,
+            "use_external": False}
+    for split, results in det_results.items():
+        with open(os.path.join(det_dir, "megvii", f"megvii_{split}.json"), "w") as fh:
+            json.dump({"meta": meta, "results": results}, fh)
+    return dict(root=root, version=version, splits_json=splits_json, det_dir=det_dir,
+                scenes=scenes, keyframes=keyframes, lidar_points=lidar_points,
+                annotations=n_ann, tracking_annotations=n_track, detections=n_det)
+
+
+
+def time_sample_memo(tables, cfg, splits_json, pre, tmp, count=MEMO_TIME_ANNS):
+    """4i: the lidar and radar preprocessors on the first ``count`` image
+    annotations of ``pre``'s ``processed_img_anns.json``, with the port's
+    memo of the last sample's clouds (``data/preprocess.py::_LastSample``)
+    and without it (every annotation aggregates its sample's sweeps, as
+    the JAX package does), in turns; the two write the same bytes. Returns
+    seconds per turn and annotations per modality."""
+    import hashlib
+    import os
+
+    from batch3dmot_tpu_torch.data import preprocess as tpre
+
+    img = json.load(open(os.path.join(pre, "processed_img_anns.json")))
+    split = next(k for k, v in img.items() if v)
+    sub = {split: img[split][:count]}
+    memo = tpre._LastSample
+
+    class NoMemo(memo):
+        def get(self, sample_token, key, make):
+            return make()
+
+    fns = {"lidar": tpre.preprocess_lidar_annotations, "radar": tpre.preprocess_radar_annotations}
+    out = {}
+    for kind, fn in fns.items():
+        secs, digests, n = [], [], 0
+        for turn, cls in enumerate((memo, NoMemo, NoMemo, memo)):
+            d = os.path.join(tmp, f"memo_{kind}_{turn}")
+            tpre._LastSample = cls
+            try:
+                t0 = time.perf_counter()
+                anns = fn(tables, d, sub, cfg, splits_json=splits_json)
+                secs.append(time.perf_counter() - t0)
+            finally:
+                tpre._LastSample = memo
+            n = sum(map(len, anns.values()))
+            digests.append({f: hashlib.sha1(open(os.path.join(d, f), "rb").read()).hexdigest()
+                            for f in sorted(os.listdir(d))})
+        assert all(dg == digests[0] for dg in digests), f"{kind}: the memo changed the bytes"
+        out[kind] = dict(annotations=n, turns=secs, memo_s=(secs[0] + secs[3]) / 2,
+                         no_memo_s=(secs[1] + secs[2]) / 2)
+    return out
+
+
+def responsive_model(model, scene, windows, gain=RESPONSIVE_GAIN, seed=11):
+    """A copy of ``model`` whose scores move with the embeddings: its GNN
+    weights drawn from ``seed`` at ``gain`` times ``init_params_``'s range
+    (whose own draw, like a briefly trained model, gives nearly constant
+    scores: the sensor features fade through the attention encoder's five
+    layers), its grafted encoders kept, and the edge classifier's last
+    layer set so that the logits over ``scene``'s windows (the module
+    loop's) have mean 0 and standard deviation 2."""
+    import torch
+
+    from batch3dmot_tpu_torch.models import init_params_
+    from batch3dmot_tpu_torch.train.encoded import EncodedGraphBatcher, precompute_scene_encodings
+
+    out = copy.deepcopy(model)
+    init_params_(out, torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        for name, p in out.named_parameters():
+            if p.dim() >= 2 and not name.startswith(("resnet", "pointnet", "radarnet")):
+                p.mul_(gain)
+    for name in ("pointnet", "radarnet"):
+        getattr(out, name).load_state_dict(getattr(model, name).state_dict())
+    out = out.cuda().eval()
+    enc = precompute_scene_encodings(out, scene)
+    last, logits = out.edge_classifier[-1], []
+    hook = last.register_forward_hook(lambda mod, args, z: logits.append(z))
+    try:
+        with torch.no_grad():
+            for graph, encs in EncodedGraphBatcher([(w, enc) for w in windows],
+                                                   8).epoch(shuffle=False):
+                graph = graph.to("cuda")
+                out.forward_from_encodings(graph, *(t.cuda() for t in encs))
+                logits[-1] = logits[-1].reshape(graph.edge_mask.shape)[graph.edge_mask]
+    finally:
+        hook.remove()
+    z = torch.cat(logits)
+    mean, std = z.mean(), z.std()
+    with torch.no_grad():
+        last.weight.mul_(2.0 / std)
+        last.bias.sub_(mean).mul_(2.0 / std)
+    return out
+
+
+def nuscenes_model_checks(cfg, model, scene, windows, full, train_store, enc_avg):
+    """3k's checks of the kernels on the tree's own data, for train-gnn's
+    checkpoint (``trained``) and for ``responsive_model`` of it (whose
+    scores move with the embeddings: the trained ones barely do, and the
+    readings print how little). Holds (a) the scene the device predict
+    loaded from the tree to the val store's (detections and modality arrays
+    equal); (b) for both models, the val store's windows through the kernel
+    against the plain version window by window (RTOL, ATOL), and the CLI's
+    encoded averages against the plain ones; (c) controls, lidar or radar
+    features zeroed: the lidar one outside that tolerance for
+    ``responsive`` (the radar features move its scores less, the readings
+    print how much); (d) ``responsive`` through the device pipeline on the
+    loaded scene against the encoded scorer on the store: the pipeline's
+    lidar and radar encodings and presence flags (RTOL, ATOL), and its
+    averaged scores (RTOL, ATOL; the lidar control outside); (e) one
+    batch of the train store (the trainer's batcher and batch size) through
+    the training pair against autograd of the plain version, for both
+    models; (f) the bfloat16 encode on ``responsive``: the embeddings at
+    RTOL, ATOL of its definition written out here (the point encoders in
+    float32 on bf16-rounded weights, statistics and inputs), a control
+    (unrounded weights) outside it, presence flags equal, scores within
+    0.06 of float32; the two encodes timed in turns. Returns the readings."""
+    import torch
+
+    from batch3dmot_tpu_torch import cli
+    from batch3dmot_tpu_torch.graph import IMG_SHAPE
+    from batch3dmot_tpu_torch.infer.device_pipeline import DeviceScenePipeline
+    from batch3dmot_tpu_torch.infer.predict import SceneEncodedScorer, average_scene_edges
+    from batch3dmot_tpu_torch.io import GraphStoreReader
+    from batch3dmot_tpu_torch.ops.fused_mp import extract_mp_params, fused_mp_scores_plain
+    from batch3dmot_tpu_torch.ops.fused_mp_train import fused_mp_train_scores, train_forward_cuda
+    from batch3dmot_tpu_torch.train.encoded import EncodedGraphBatcher, precompute_scene_encodings
+
+    out = {}
+    # (a) the device predict's input, extracted from the tree, is the store's
+    assert full.num_detections == scene.num_detections, (full.num_detections,
+                                                          scene.num_detections)
+    for name in ("frame_idx", "class_id", "lidar", "radar"):
+        a, b = getattr(full, name), getattr(scene, name)
+        assert a.shape == b.shape and np.array_equal(a, b), name
+    model = model.cuda().eval()
+    responsive = responsive_model(model, scene, windows)
+
+    class Zeroed(SceneEncodedScorer):
+        """The controls: one sensor's features zeroed (slot 1: lidar, 2: radar)."""
+
+        def __init__(self, m, slot):
+            super().__init__(m)
+            self.slot = slot
+
+        def _encode(self, *args):
+            enc = list(super()._encode(*args))
+            enc[self.slot] = torch.zeros_like(enc[self.slot])
+            return tuple(enc)
+
+    def outside(a, b):
+        return int((np.abs(a - b) > RTOL * np.abs(b) + ATOL).sum())
+
+    win_scores = {}
+    for tag, m in (("trained", model), ("responsive", responsive)):
+        # (b), (c)
+        k = SceneEncodedScorer(m).score_scene(scene, windows)
+        p = plain_scorer(m).score_scene(scene, windows)
+        for a, b in zip(k, p):
+            np.testing.assert_allclose(a, b, rtol=RTOL, atol=ATOL)
+        flat = np.concatenate(k)
+        r = dict(plain_err=max(float(np.abs(a - b).max()) for a, b in zip(k, p) if a.size),
+                 scores=[float(x) for x in np.quantile(flat, (0.0, 0.1, 0.5, 0.9, 1.0))],
+                 edges=int(flat.size))
+        for slot, sensor in ((1, "lidar"), (2, "radar")):
+            c = Zeroed(m, slot).score_scene(scene, windows)
+            r[f"{sensor}_control_err"] = max(float(np.abs(a - b).max())
+                                             for a, b in zip(k, c) if a.size)
+            r[f"{sensor}_control_outside"] = sum(outside(b, a) for a, b in zip(k, c))
+            if slot == 1:
+                win_scores[tag] = (k, c)
+        if tag == "trained":
+            r["cli_vs_plain"] = max_avg_diff(enc_avg, average_scene_edges(windows, p))
+        out[tag] = r
+    assert out["responsive"]["lidar_control_outside"] > 0, out["responsive"]
+
+    # (d) the device pipeline on the tree's scene against the encoded scorer:
+    # its encodings (kept from its encode_frozen call) and its averages
+    k, c = win_scores["responsive"]
+    enc_s, ctrl_s = average_scene_edges(windows, k), average_scene_edges(windows, c)
+    kept, encode = [], responsive.encode_frozen
+
+    def keep(img, lidar, radar):
+        enc = encode(img, lidar, radar)
+        kept.append((lidar, radar, *enc))
+        return enc
+
+    responsive.encode_frozen = keep
+    try:
+        dev_s = DeviceScenePipeline(responsive, 5, cfg.graph_construction.top_knn_nodes
+                                    ).score_scenes([full])[0]
+    finally:
+        del responsive.encode_frozen
+    assert len(kept) == 1, len(kept)
+    m_det = scene.num_detections
+    img = torch.zeros((m_det, *IMG_SHAPE), device="cuda")
+    lidar, radar = torch.from_numpy(scene.lidar).cuda(), torch.from_numpy(scene.radar).cuda()
+    with torch.inference_mode():
+        want = SceneEncodedScorer(responsive)._encode(img, lidar, radar)
+    d_lidar, d_radar, _, d_pn, d_rn = (t[:m_det] for t in kept[0])
+    assert torch.equal(d_lidar.sum(dim=(1, 2)) != 0, want[3])
+    assert torch.equal(d_radar.sum(dim=(1, 2)) != 0, want[4])
+    torch.testing.assert_close(d_pn, want[1], rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(d_rn, want[2], rtol=RTOL, atol=ATOL)
+    out["responsive"]["device_encodings_err"] = max(float((d_pn - want[1]).abs().max()),
+                                                    float((d_rn - want[2]).abs().max()))
+    if dev_s.keys() == enc_s.keys():
+        out["responsive"]["device_vs_encoded"] = max_avg_diff(dev_s, enc_s)
+        ctrl = sum(abs(dev_s[e] - v) > RTOL * abs(v) + ATOL for e, v in ctrl_s.items())
+        out["responsive"]["device_control_outside"] = int(ctrl)
+        assert ctrl > 0, "the device comparison does not see zeroed lidar features"
+    else:
+        out["responsive"]["device_vs_encoded"] = None  # a kNN near-tie (the trained run counts it)
+
+    # (e) one train-store batch through the training pair and the plain version
+    rng = np.random.default_rng(12)
+    train_windows = GraphStoreReader(train_store).windows()
+    tscene = cli._scene_from_store(train_store, train_windows, with_modalities=True)
+    for tag, m in (("trained", model), ("responsive", responsive)):
+        enc = precompute_scene_encodings(m, tscene)
+        graph, encs = next(EncodedGraphBatcher([(w, enc) for w in train_windows],
+                                               cfg.gnn.batch_size, seed=1).epoch())
+        graph, encs = graph.to("cuda"), [t.cuda() for t in encs]
+        with torch.no_grad():
+            x0, e0, att, _ = m.pre_message_passing(graph, *encs)
+        inputs = (x0, e0, att, graph.edge_src, graph.edge_dst, graph.edge_mask)
+        flat_w, meta = extract_mp_params(m, True, m.node_dim, m.edge_dim)
+        with torch.no_grad():
+            got = train_forward_cuda(*inputs, flat_w, meta, m.depth, False)[:4]
+            ref = fused_mp_scores_plain(*inputs, flat_w, meta, m.depth, False, carries=True)
+        # scores at RTOL, ATOL; the stashes at RTOL and ATOL x max|plain| of
+        # the tensor (the tree's raw pose features scale the node and edge
+        # features far past 1); the readings print each tensor's scale and
+        # how many of its elements fall outside the unscaled ATOL
+        f_err, stash = 0.0, {}
+        for what, a, b in zip(("scores", "x_t", "e_t", "agg_t"), got, ref):
+            scale = float(b.abs().max())
+            atol = ATOL * (1.0 if what == "scores" else max(1.0, scale))
+            diff = (a - b).abs()
+            stash[what] = dict(max_plain=scale, max_diff=float(diff.max()),
+                               outside_atol=int((diff > RTOL * b.abs() + ATOL).sum()))
+            torch.testing.assert_close(a, b, rtol=RTOL, atol=atol,
+                                       msg=lambda m, w=what: f"{tag} {w} {stash[w]}: {m}")
+            f_err = max(f_err, float(diff.max()))
+        ct = torch.from_numpy(rng.uniform(-1.0, 1.0, tuple(x0.shape[:1]) + tuple(e0.shape[1:2]))
+                              .astype(np.float32)).cuda()
+        _, g_k = train_grads(m, inputs, ct, m.depth, False, fused_mp_train_scores)
+        _, g_p = train_grads(m, inputs, ct, m.depth, False, fused_mp_scores_plain)
+
+        def plain64(m=m, inputs=inputs, ct=ct):
+            m64 = copy.deepcopy(m).double()
+            i64 = [t.double() if t is not None and t.is_floating_point() else t for t in inputs]
+            return train_grads(m64, i64, ct.double(), m.depth, False, fused_mp_scores_plain)[1]
+
+        err, tied = compare_grads(g_k, g_p, plain64, f"3k train store batch ({tag})")
+        out[tag].update(train_batch=[int(x) for x in graph.edge_mask.shape],
+                        train_edges=int(graph.edge_mask.sum()), train_fwd_err=f_err,
+                        train_stashes=stash,
+                        train_grad_err=err, train_grad_tied=len(tied),
+                        train_grad_max=max(float(g.abs().max()) for g in g_p.values()))
+        m.zero_grad(set_to_none=True)
+
+    # (f) encode_dtype on the responsive model
+    f32 = SceneEncodedScorer(responsive)
+    bf16 = SceneEncodedScorer(responsive, encode_dtype="bfloat16")
+    s32 = np.concatenate(f32.score_scene(scene, windows))
+    s16 = np.concatenate(bf16.score_scene(scene, windows))
+    bf16_err = float(np.abs(s32 - s16).max())
+    assert bf16_err <= 0.06, bf16_err
+    rounded = [t.bfloat16().float() for t in (lidar, radar)]
+    definition = copy.deepcopy(f32.model)
+    for name in ("pointnet", "radarnet"):
+        for t in (*getattr(definition, name).parameters(), *getattr(definition, name).buffers()):
+            if t.is_floating_point():
+                t.data = t.data.bfloat16().float()
+    with torch.inference_mode():
+        e32, e16 = f32._encode(img, lidar, radar), bf16._encode(img, lidar, radar)
+        assert torch.equal(e32[3], e16[3]) and torch.equal(e32[4], e16[4])
+        want = definition.encode_frozen(img, *rounded)
+        unrounded = f32.model.encode_frozen(img, *rounded)
+        def_err = ctrl_err = emb_err = 0.0
+        ctrl_out = 0
+        for i in (1, 2):  # pn, rn (no images on the card)
+            torch.testing.assert_close(e16[i], want[i], rtol=RTOL, atol=ATOL)
+            def_err = max(def_err, float((e16[i] - want[i]).abs().max()))
+            ctrl_err = max(ctrl_err, float((unrounded[i] - want[i]).abs().max()))
+            ctrl_out += int(((unrounded[i] - want[i]).abs()
+                             > RTOL * want[i].abs() + ATOL).sum())
+            emb_err = max(emb_err, float((e32[i] - e16[i]).abs().max()))
+        assert ctrl_out > 0, "the unrounded-weights control met the bfloat16 definition"
+        enc_turns = [cuda_ms(lambda s=s: s._encode(img, lidar, radar), 10)
+                     for s in (f32, bf16, bf16, f32)]
+    out["bf16"] = dict(score_err=bf16_err, embedding_err=emb_err, definition_err=def_err,
+                       control_err=ctrl_err, control_outside=ctrl_out, turns=enc_turns,
+                       detections=m_det)
+    return out
+
+
+def nuscenes_phase(card):
+    """Phase 3k: the port's CLI (``cli.main`` in this process, ``--set``
+    overrides only, the card by default) on a nuScenes-shaped tree that
+    ``write_nuscenes_tree`` writes from a seed (2 scenes of 40 keyframes,
+    one train and one val; lidar and radar, no images: the card's machine
+    has no PIL): ``validate-data --strict``, ``preprocess --modality all``
+    (twice, then ``--skip-existing``), ``train-pointnet`` and
+    ``train-radarnet --device-dataset``, ``build-graphs`` (train, and val
+    for predict), ``train-gnn --model mm --encoded`` with both encoders
+    grafted, ``predict --pipeline encoded`` and ``--pipeline device`` on
+    the val split, ``export-gt``, ``eval`` and ``eval --devkit``. Holds the
+    second preprocess byte-identical and the skipped one writing nothing,
+    every lidar artifact inside its box, GT matches and positive edges in
+    every class of the stores, each call's kernel launches to their exact
+    count, the device predict against the encoded one (RTOL, ATOL; the
+    same predicted edges, submission and AMOTA but at counted near-ties),
+    and ``nuscenes_model_checks``. 4i: each call's wall time, preprocess
+    annotations/s per modality, the last-sample memo's gain
+    (``time_sample_memo``), build-graphs detections/s by stage, predict's
+    rate lines, and the float32 and bfloat16 encodes in turns. Returns the
+    launches per kernel, the timings and the checked readings."""
+    import ast
+    import glob
+    import hashlib
+    import os
+    import shutil
+
+    import torch
+
+    from batch3dmot_tpu_torch import cli
+    from batch3dmot_tpu_torch import geometry as geo
+    from batch3dmot_tpu_torch.config import TRACKING_CLASS_NAMES
+    from batch3dmot_tpu_torch.data.nuscenes_tables import NuScenesTables
+    from batch3dmot_tpu_torch.eval.tracking_metrics import json_safe
+    from batch3dmot_tpu_torch.graphs import build_scene_graphs
+    from batch3dmot_tpu_torch.graphs.build_device import build_scene_graphs_device
+    from batch3dmot_tpu_torch.graphs.statistics import edge_class_histogram
+    from batch3dmot_tpu_torch.infer import device_pipeline
+    from batch3dmot_tpu_torch.infer.predict import greedy_round, threshold_edges
+    from batch3dmot_tpu_torch.io import GraphStoreReader
+    from batch3dmot_tpu_torch.train.data import group_sizes_by_bucket
+    from batch3dmot_tpu_torch.train.trainer import WARMUP_STEPS
+    from batch3dmot_tpu_torch.utils.checkpoint import load_checkpoint
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="b3d_nusc_")
+    t0 = time.perf_counter()
+    tree = write_nuscenes_tree(os.path.join(tmp, "nuscenes"), seed=0)
+    t_write = time.perf_counter() - t0
+    sets = [f"paths.tmp={tmp}/run", f"paths.data={tree['root']}",
+            f"paths.splits_json={tree['splits_json']}", f"paths.detections_dir={tree['det_dir']}",
+            "main.version=v1.0-trainval", "detections.megvii.train=megvii/megvii_train.json",
+            "detections.megvii.val=megvii/megvii_val.json", "main.sensors_used.img=false"]
+    argv_sets = [a for kv in sets for a in ("--set", kv)]
+    cfg = cli.Config()
+    cfg.apply_overrides(sets)
+    val_graphs = os.path.join(tmp, "graphs_val")
+    times, launches, outputs = {}, {}, {}
+
+    def run(tag, argv):
+        """One CLI call: its result, wall time, printed lines and the
+        kernels it launched (every count set to 0 just before)."""
+        out = io.StringIO()
+        torch.cuda.synchronize()
+        counters(reset=True)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            result = cli.main([*argv, *argv_sets])
+        torch.cuda.synchronize()
+        times[tag] = time.perf_counter() - t0
+        launches[tag] = counters()
+        outputs[tag] = out.getvalue()
+        for line in outputs[tag].splitlines()[-6:]:
+            log(f"  [{tag}] {line}")
+        return result
+
+    def digests(d):
+        return {os.path.relpath(p, d): hashlib.sha1(Path(p).read_bytes()).hexdigest()
+                for p in sorted(glob.glob(os.path.join(d, "**", "*"), recursive=True))
+                if os.path.isfile(p)}
+
+    def mtimes(d):
+        return {p: os.stat(p).st_mtime_ns
+                for p in glob.glob(os.path.join(d, "**", "*"), recursive=True)}
+
+    def latest(pattern):
+        return sorted(glob.glob(pattern), key=os.path.getmtime)[-1]
+
+    zero = dict(fused_mp=0, fwd=0, bwd=0, segment_sum=0)
+    try:
+        # 1. the doctor, strict
+        run("validate-data", ["validate-data", "--strict"])
+        assert "validate-data: 0 error(s), 0 warning(s)" in outputs["validate-data"]
+
+        # 2. preprocess: twice byte-identical, then --skip-existing writes nothing
+        pre = cfg.paths.preprocessed
+        said = run("preprocess", ["preprocess", "--modality", "all"])
+        first = digests(pre)
+        run("preprocess again", ["preprocess", "--modality", "all"])
+        assert digests(pre) == first, "a second preprocess wrote other bytes"
+        before = mtimes(pre)
+        assert run("preprocess --skip-existing", ["preprocess", "--skip-existing"]) == {}
+        assert mtimes(pre) == before, "preprocess --skip-existing wrote files"
+        # every lidar artifact inside its box (1.001: the float32 rounding of
+        # the saved ego-frame points)
+        tables = NuScenesTables(tree["root"], tree["version"])
+        lidar_anns = json.load(open(os.path.join(pre, "processed_lidar_anns.json")))
+        n_clouds = n_points = 0
+        for e in {e["sample_annotation_token"]: e for v in lidar_anns.values() for e in v}.values():
+            ann = tables.get("sample_annotation", e["sample_annotation_token"])
+            ego_t, ego_q = tables.ego_pose_of_sample(ann["sample_token"])
+            c_e, q_e, _ = geo.boxes_global_to_ego(
+                np.array([ann["translation"]]), np.array([ann["rotation"]]), np.zeros((1, 3)),
+                ego_t, ego_q)
+            pts = np.load(os.path.join(pre, "lidar", f"{ann['token']}.npy"))
+            assert geo.points_in_box(c_e[0], np.array(ann["size"]), q_e[0], pts[0:3].astype(float),
+                                     wlh_factor=1.001).all(), ann["token"]
+            n_clouds += 1
+            n_points += pts.shape[1]
+        assert n_clouds > 500 and n_points > 20 * n_clouds, (n_clouds, n_points)
+        for tag in ("validate-data", "preprocess", "preprocess again", "preprocess --skip-existing"):
+            assert launches[tag] == zero, (tag, launches[tag])
+        memo = time_sample_memo(tables, cfg, tree["splits_json"], pre, tmp)
+
+        # 3. the point encoders on the artifacts, one epoch each
+        for enc in ("pointnet", "radarnet"):
+            hist = run(f"train-{enc}", [f"train-{enc}", "--device-dataset", "--epochs", "1"])
+            assert np.isfinite(hist[0]["train/nll"]) and launches[f"train-{enc}"] == zero
+        enc_ck = {enc: latest(os.path.join(cfg.paths.models, enc, "*.pt"))
+                  for enc in ("pointnet", "radarnet")}
+
+        # 4. stores: the train split (for train-gnn) and the val split (for
+        # the encoded predict)
+        build = run("build-graphs", ["build-graphs"])
+        build_val = run("build-graphs val", ["build-graphs", "--set", "graph_construction.split=val",
+                                             "--set", f"paths.graphs_dir={val_graphs}"])
+        train_p = sorted(glob.glob(os.path.join(cfg.paths.graphs_dir, "*.b3d")))
+        val_p = sorted(glob.glob(os.path.join(val_graphs, "*.b3d")))
+        assert len(train_p) == 1 and len(val_p) == 1, (train_p, val_p)
+        hist = edge_class_histogram(train_p + val_p)
+        pos, matched = {}, {}
+        for p in train_p + val_p:
+            reader = GraphStoreReader(p)
+            for i in range(reader.num_windows):
+                cls, src = reader.array(i, "node_class"), reader.array(i, "edge_src")
+                lab = reader.array(i, "edge_label")
+                for c in np.unique(cls):
+                    name = TRACKING_CLASS_NAMES[int(c)]
+                    pos[name] = pos.get(name, 0) + int(lab[cls[src] == c].sum())
+            for md in json.load(open(p.replace(".b3d", "_metadata.json"))):
+                matched[md["category_name"]] = matched.get(md["category_name"], 0) + bool(md["token"])
+        # the classes present: GT in at least 3 keyframes of a scene
+        present = set()
+        for scene_rec in tables.scenes:
+            frames = {}
+            for tok in tables.scene_sample_tokens(scene_rec["token"]):
+                for c in set(tables.gt_frame_boxes(tok).class_id.tolist()):
+                    frames[c] = frames.get(c, 0) + 1
+            present |= {TRACKING_CLASS_NAMES[c] for c, n in frames.items() if n >= 3}
+        assert len(present) >= 5, present
+        assert all(pos.get(c, 0) > 0 and matched.get(c, 0) > 0 and hist[c] > 0
+                   for c in present), (present, pos, matched)
+        for tag in ("build-graphs", "build-graphs val"):
+            assert launches[tag] == zero, (tag, launches[tag])
+
+        # 5. train-gnn mm --encoded with both encoders grafted: one store, so
+        # train and validation sets are that store's windows
+        sizes = {p: [(n, e) for n, e in zip(*GraphStoreReader(p).window_sizes())
+                     if n > 0 and e > 0] for p in train_p + val_p}
+        hist_mm = run("train-gnn mm", ["train-gnn", "--model", "mm", "--encoded", "--epochs", "1",
+                                       "--pointnet-checkpoint", enc_ck["pointnet"],
+                                       "--radarnet-checkpoint", enc_ck["radarnet"]])
+        out = outputs["train-gnn mm"]
+        assert "grafted frozen pointnet" in out and "grafted frozen radarnet" in out, out
+        groups = len(group_sizes_by_bucket(sizes[train_p[0]]))
+        per = WARMUP_STEPS + 1
+        want = dict(fused_mp=per * groups, fwd=per * groups, bwd=per * groups,
+                    segment_sum=2 * per * groups)
+        assert launches["train-gnn mm"] == want, (launches["train-gnn mm"], want)
+        assert np.isfinite(hist_mm[0]["train/loss"]), hist_mm
+        ck = latest(os.path.join(cfg.paths.models, "gnn", "*.pt"))
+
+        # 6. predict on the val split: encoded over its stores (no caches:
+        # the raw encode), the device pipeline straight from the tree at the
+        # stores' window; one scene: one launch of the device pipeline
+        run("predict encoded", ["predict", "--pipeline", "encoded", "--checkpoint", ck,
+                                "--set", f"paths.graphs_dir={val_graphs}",
+                                "--set", f"paths.eval={tmp}/eval_encoded"])
+        loaded, load = [], cli._load_nuscenes_scenes
+
+        def recording(*args, **kw):
+            for sc in load(*args, **kw):
+                loaded.append(sc)
+                yield sc
+
+        cli._load_nuscenes_scenes = recording
+        try:
+            run("predict device", ["predict", "--pipeline", "device", "--checkpoint", ck,
+                                   "--set", "predict.batch_size_graph=5",
+                                   "--set", f"paths.eval={tmp}/eval_device"])
+        finally:
+            cli._load_nuscenes_scenes = load
+        assert len(loaded) == 1, len(loaded)
+        n_live = len(sizes[val_p[0]])
+        for tag, n in (("predict encoded", -(-n_live // 8)), ("predict device", 1)):
+            assert launches[tag] == dict(zero, fused_mp=n), (tag, launches[tag], n)
+
+        def scores_of(tag):
+            p = glob.glob(os.path.join(tmp, f"eval_{tag}", "predict", "*_edge_scores.json"))
+            assert len(p) == 1, p
+            return {ast.literal_eval(k): v for k, v in json.load(open(p[0])).items()}
+
+        enc_avg, dev_avg = scores_of("encoded"), scores_of("device")
+        model = cli._make_cli_model(cfg, "mm")
+        model.load_state_dict(load_checkpoint(ck, map_location="cpu"))
+        windows = GraphStoreReader(val_p[0]).windows()
+        scene = cli._scene_from_store(val_p[0], windows, with_modalities=True)
+        thresholds = cfg.predict.edge_score_thresholds
+        dev_err, knn_flips, dev_flips, sub_diff = 0.0, 0, 0, None
+        if dev_avg.keys() == enc_avg.keys():
+            dev_err = max_avg_diff(dev_avg, enc_avg)
+            preds = [(greedy_round(threshold_edges(a, scene, thresholds)), a)
+                     for a in (dev_avg, enc_avg)]
+            dev_flips, unexplained = rounding_flips(preds[:1], preds[1:], [scene])
+            assert unexplained == 0, unexplained
+        else:
+            # a kNN near-tie: the card's windows hold the host builder's but at it
+            full = loaded[0]
+            q = device_pipeline.DeviceScenePipeline(model, 5, 40)._quanta(full)
+            knn_flips, _ = compare_builds(
+                full, list(build_scene_graphs(full, 5, cfg.graph_construction)),
+                build_scene_graphs_device(full, 5, cfg.graph_construction, max_nodes=q[2]), 5, 40)
+            assert knn_flips > 0
+        gt_path = os.path.join(tmp, "gt.json")
+        run("export-gt", ["export-gt", "--out", gt_path])
+        gt = json.load(open(gt_path))
+        assert gt["frames"] and all(t.startswith("sc1_") for t in gt["frames"])
+        res = {tag: run(f"eval {tag}", ["eval", "--submission",
+                                        os.path.join(tmp, f"eval_{tag}", "submission.json"),
+                                        "--gt", gt_path])
+               for tag in ("encoded", "device")}
+        if dev_flips == 0 and knn_flips == 0:
+            sub_diff = submission_diff(
+                json.load(open(os.path.join(tmp, "eval_device", "submission.json"))),
+                json.load(open(os.path.join(tmp, "eval_encoded", "submission.json"))))
+            assert sub_diff <= 1e-6, sub_diff
+            assert res["device"].amota == res["encoded"].amota, (res["device"].amota,
+                                                                 res["encoded"].amota)
+        assert np.isfinite(res["encoded"].amota)
+        try:
+            run("eval --devkit", ["eval", "--submission",
+                                  os.path.join(tmp, "eval_encoded", "submission.json"), "--devkit"])
+        except SystemExit as e:
+            assert str(e.code).startswith("nuscenes-devkit is not installed"), e.code
+        else:
+            raise AssertionError("eval --devkit ran without the devkit")
+        for tag in ("export-gt", "eval encoded", "eval device"):
+            assert launches[tag] == zero, (tag, launches[tag])
+
+        # 7. the kernels on the tree's windows against the plain version, the
+        # comparisons on a model whose scores move with the embeddings, and
+        # encode_dtype (nuscenes_model_checks)
+        mc = nuscenes_model_checks(cfg, model, scene, windows, loaded[0], train_p[0], enc_avg)
+        total = dict(zero)
+        for c in launches.values():
+            for k, v in c.items():
+                total[k] += v
+
+        log(f"3k nuScenes tree written in {t_write:.2f} s: {tree['scenes']} scenes x "
+            f"{tree['keyframes']} keyframes, {tree['annotations']} annotations "
+            f"({tree['tracking_annotations']} in tracking classes), {tree['detections']} "
+            f"tracking-class detections; LIDAR_TOP {tree['lidar_points']} points x "
+            f"{cfg.preprocessing.nsweeps_lidar} sweeps, 5 radars x "
+            f"{cfg.preprocessing.nsweeps_radar} sweeps")
+        log(f"3k CLI on {card}: kernels launched (every count reset before each call) "
+            + "; ".join(f"{k} {v}" for k, v in launches.items() if v != zero))
+        log(f"3k preprocess: a second run byte-identical ({len(first)} files), --skip-existing "
+            f"wrote nothing; {n_clouds} lidar clouds ({n_points} points) inside their boxes")
+        log(f"3k stores: classes with GT in 3+ keyframes {sorted(present)}; positive edges "
+            f"{pos}; GT-matched detections {matched}; edge class histogram {hist}")
+        log(f"3k predict --pipeline device vs encoded (val scene): max|avg diff| {dev_err:.3e} "
+            f"(RTOL {RTOL:g}, ATOL {ATOL:g}); kNN near-tie windows {knn_flips}; predicted edges "
+            f"at a near-tie {dev_flips}; submission box fields within {sub_diff}; AMOTA "
+            f"encoded {res['encoded'].amota!r} device {res['device'].amota!r}")
+        for tag in ("trained", "responsive"):
+            r = mc[tag]
+            log(f"3k {tag} model on the val store's {len(windows)} windows ({r['edges']} edges; "
+                f"scores min/10%/median/90%/max "
+                + "/".join(f"{x:.6f}" for x in r["scores"])
+                + f"): max|kernel-plain| {r['plain_err']:.3e} window by window (RTOL {RTOL:g}, "
+                f"ATOL {ATOL:g})"
+                + (f", the CLI's encoded averages vs the plain ones {r['cli_vs_plain']:.3e}"
+                   if "cli_vs_plain" in r else "")
+                + "; controls, features zeroed: " + ", ".join(
+                    f"{x} max|diff| {r[f'{x}_control_err']:.3e}, "
+                    f"{r[f'{x}_control_outside']} edges outside" for x in ("lidar", "radar")))
+            log(f"3k {tag} model, one train-store batch {tuple(r['train_batch'])} "
+                f"({r['train_edges']} valid edges) through the training pair: max|kernel-plain| "
+                f"scores and stashes {r['train_fwd_err']:.3e} ("
+                + ", ".join(f"{w} max|plain| {v['max_plain']:.3e} max|diff| {v['max_diff']:.3e} "
+                            f"{v['outside_atol']} outside ATOL {ATOL:g}"
+                            for w, v in r["train_stashes"].items())
+                + f"), gradients {r['train_grad_err']:.3e} "
+                f"(max|plain| {r['train_grad_max']:.3e}; {r['train_grad_tied']} tensors held to "
+                f"the relative L2 bound)")
+        r = mc["responsive"]
+        log(f"3k responsive model, device pipeline on the tree-loaded val scene vs the encoded "
+            f"scorer on the store: lidar and radar encodings max|diff| "
+            f"{r['device_encodings_err']:.3e}, presence flags equal; max|avg diff| "
+            f"{r['device_vs_encoded']} (RTOL {RTOL:g}, ATOL {ATOL:g}); the lidar-zeroed control puts "
+            f"{r.get('device_control_outside')} edges outside; the loaded scene's detections "
+            f"and lidar and radar arrays equal the store's")
+        b = mc["bf16"]
+        log(f"3k encode_dtype=bfloat16, responsive model, val scene ({b['detections']} detections): "
+            f"max|score - float32| {b['score_err']:.3e} (<= 0.06); embeddings "
+            f"{b['embedding_err']:.3e} from float32, {b['definition_err']:.3e} from the "
+            f"definition (RTOL {RTOL:g}, ATOL {ATOL:g}); control, unrounded weights: "
+            f"{b['control_err']:.3e}, {b['control_outside']} elements outside; presence flags "
+            f"equal")
+        wall = {k: v for k, v in times.items()}
+        rates = {k: dict(annotations=v["annotations"], seconds=v["seconds"],
+                         per_s=v["annotations"] / v["seconds"]) for k, v in said.items()}
+        builds = {tag: dict(b, per_s=b["detections"] / b["seconds"])
+                  for tag, b in (("train", build), ("val", build_val))}
+        log(f"4i CLI wall times on {card}: " + ", ".join(f"{k} {v:.2f} s" for k, v in wall.items()))
+        log(f"4i preprocess on {card}'s host: " + ", ".join(
+            f"{k} {v['annotations']} annotations in {v['seconds']:.2f} s "
+            f"({v['per_s']:.1f}/s)" for k, v in rates.items()))
+        for tag, b in builds.items():
+            log(f"4i build-graphs {tag} on {card}'s host: {b['detections']} detections in "
+                f"{b['seconds']:.2f} s ({b['per_s']:.1f}/s): tables and matching "
+                f"{b['tables']:.2f} s, modality extraction {b['modalities']:.2f} s, graph build "
+                f"{b['graphs']:.2f} s, store write {b['write']:.2f} s")
+        for kind, r in memo.items():
+            log(f"4i preprocess {kind} on {card}'s host, {r['annotations']} annotations: with "
+                f"the last-sample memo {r['memo_s']:.2f} s "
+                f"({r['annotations'] / r['memo_s']:.1f}/s), without {r['no_memo_s']:.2f} s "
+                f"({r['annotations'] / r['no_memo_s']:.1f}/s), "
+                f"{r['no_memo_s'] / r['memo_s']:.2f}x; turns with/without/without/with "
+                + "/".join(f"{t:.2f}" for t in r["turns"]) + " s; the same bytes")
+        for tag in ("predict encoded", "predict device"):
+            log(f"4i  {[ln for ln in outputs[tag].splitlines() if ln.startswith('predict[')][-1].split(' -> ')[0]}")
+        enc_turns = mc["bf16"]["turns"]
+        log(f"4i encode of the val scene's {scene.num_detections} detections on {card}: float32 "
+            f"{(enc_turns[0] + enc_turns[3]) / 2:.3f} ms, bfloat16 "
+            f"{(enc_turns[1] + enc_turns[2]) / 2:.3f} ms (turns f32/bf16/bf16/f32 "
+            + "/".join(f"{t:.3f}" for t in enc_turns) + f" ms); phase 3k and 4i "
+            f"{time.perf_counter() - t_phase:.1f} s")
+        timing = dict(wall_s=wall, tree_write_s=t_write, preprocess=rates, sample_memo=memo,
+                      build_graphs=builds,
+                      encode_ms=dict(float32=(enc_turns[0] + enc_turns[3]) / 2,
+                                     bfloat16=(enc_turns[1] + enc_turns[2]) / 2, turns=enc_turns))
+        checks = dict(device_vs_encoded=dev_err, knn_flip_windows=knn_flips,
+                      near_tie_edges=dev_flips, submission_diff=sub_diff,
+                      amota=json_safe(dict(encoded=res["encoded"].amota,
+                                           device=res["device"].amota)),
+                      models=mc,
+                      lidar_clouds_in_box=n_clouds, phase_s=time.perf_counter() - t_phase)
+        return dict(launches=total, per_call={k: v for k, v in launches.items() if v != zero},
+                    timing=timing, checks=checks)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -2196,18 +3304,7 @@ def main() -> int:
         f"{sum(len(p) for p, _ in preds)} predicted edges, {n_tracks} tracks, "
         f"{len(boxes)} boxes; AMOTA {res.amota:.4f} (untrained random weights)")
 
-    class PlainScorer(SceneEncodedScorer):
-        """The same scorer with the plain message-passing version."""
-
-        def _forward(self, batch, det_index, enc):
-            x_img, pn, rn, lp, rp = (t[det_index] for t in enc)
-            m = self.model
-            x0, e0, att, _ = m.pre_message_passing(batch, x_img, pn, rn, lp, rp)
-            flat, meta = extract_mp_params(m, True, m.node_dim, m.edge_dim)
-            return fused_mp_scores_plain(x0, e0, att, batch.edge_src, batch.edge_dst,
-                                         batch.edge_mask, flat, meta, m.depth)
-
-    plain_scores = PlainScorer(model).score_scenes(scenes, windows_list)
+    plain_scores = plain_scorer(model).score_scenes(scenes, windows_list)
     path_err = max(float(np.abs(a - b).max())
                    for ss, ps in zip(scores, plain_scores) for a, b in zip(ss, ps))
     for ss, ps in zip(scores, plain_scores):
@@ -3019,6 +4116,9 @@ def main() -> int:
     # ---- 3j. the CLI (and its timing, 4h) ------------------------------------
     cli_run = cli_phase(card)
 
+    # ---- 3k. the nuScenes data plane through the CLI (and its timing, 4i) -------
+    nusc_run = nuscenes_phase(card)
+
     # ---- 4. timing -----------------------------------------------------
     # the first full batch of the (256, 4096) bucket, with the inputs the
     # main path gives the kernel (kept from one more run); plain and kernel
@@ -3578,6 +4678,13 @@ def main() -> int:
         k["cli"] = dict(launches=cli_run["launches"][key],
                         **(dict(per_call={t: c[key] for t, c in cli_run["per_call"].items()},
                                 timing=cli_run["timing"]) if key == "fwd" else {}))
+    # 3k: each kernel's launches by the nuScenes-tree CLI calls (counted as
+    # 3j counts them); 4i's timing and 3k's checked values once
+    for k, key in zip(kernels, ("fused_mp", "fwd", "bwd", "segment_sum")):
+        k["nuscenes"] = dict(launches=nusc_run["launches"][key],
+                             **(dict(per_call={t: c[key] for t, c in nusc_run["per_call"].items()},
+                                     timing=nusc_run["timing"], checks=nusc_run["checks"])
+                                if key == "fwd" else {}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"encoders": enc_timing, "card": card}))
     log(f"card: {card}")

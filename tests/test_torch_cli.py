@@ -5,9 +5,9 @@ from one JAX-written checkpoint (``--init-checkpoint``) with the same
 history; ``predict`` (pose, the windows path) from the JAX msgpack with the
 same per-scene edge scores, submission and ``eval`` AMOTA; ``concat-jsons``,
 ``import-checkpoint``, the reference model names; every subcommand's option
-strings and defaults (``--device`` the one addition); the subcommands that
-need the unported nuScenes data plane, and the default device, which
-refuses to run without a GPU.
+strings and defaults (``--device`` the one addition); and the default
+device, which refuses to run without a GPU. The nuScenes data plane's
+subcommands are in ``test_torch_cli_nuscenes*.py``.
 
 The helpers here are shared by the other ``test_torch_cli_*`` files."""
 
@@ -306,28 +306,6 @@ def test_import_checkpoint_matches_jax(arch, tmp_path, capsys):
             a, b = a[2 * a.shape[0] // 3:], b[2 * b.shape[0] // 3:]
         if not k.endswith("num_batches_tracked"):
             np.testing.assert_array_equal(a, b, err_msg=k)
-
-
-NOT_PORTED = [
-    ["preprocess"],
-    ["validate-data"],
-    ["export-gt", "--out", "gt.json"],
-    ["build-graphs", "--device", "cpu"],
-    ["predict", "--pipeline", "device", "--device", "cpu"],
-]
-
-
-@pytest.mark.parametrize("argv", NOT_PORTED, ids=lambda a: "-".join(a[:2]))
-def test_unported_subcommands_name_what_they_need(argv, tmp_path):
-    with pytest.raises(SystemExit, match="not ported yet: it needs .*nuScenes"):
-        tcli.main([*argv, "--set", f"paths.tmp={tmp_path}"])
-
-
-def test_eval_devkit_is_not_ported(tmp_path):
-    sub = tmp_path / "sub.json"
-    sub.write_text(json.dumps({"results": {}}))
-    with pytest.raises(SystemExit, match="eval --devkit is not ported yet"):
-        tcli.main(["eval", "--submission", str(sub), "--devkit"])
 
 
 DEFAULT_DEVICE = [

@@ -12,7 +12,11 @@ cache, the data-parallel mesh) refuse to run on the CPU unless asked to; and
 the ranks that the data-parallel dry run spawns (``parallel/dryrun.py``)
 import none of those modules either; nor does the CLI (build, train,
 predict, eval on the CPU), which also imports no ``yaml`` until a
-``--config`` file is read, nor the ranks that ``--devices 2`` spawns."""
+``--config`` file is read, nor the ranks that ``--devices 2`` spawns; and
+the nuScenes data plane's lidar and radar path (``validate-data``,
+``preprocess`` of each modality, ``build-graphs`` with the image sensor
+off, ``export-gt``) runs where PIL and PyYAML cannot be imported, as on
+the machine with the card, while an image request there raises."""
 
 import os
 import subprocess
@@ -340,3 +344,66 @@ def test_spawned_cli_ranks_import_no_jax(tmp_path):
         assert torch.load(tmp_path / f"cli_modules{rank}.pt") == []
     assert (tmp_path / "result.json").exists()
     assert (tmp_path / "nuscenes" / "eval" / "submission.json").exists()
+
+
+DATA_PLANE_SCRIPT = textwrap.dedent(
+    """
+    import sys
+    sys.modules["PIL"] = None  # as absent as on the card's machine
+    sys.modules["yaml"] = None
+    import glob, os
+    import torch
+    torch.set_num_threads(1)
+    from batch3dmot_tpu_torch.cli import main
+
+    root, splits, dets, out = sys.argv[1:5]
+    sets = []
+    for s in (f"paths.tmp={out}", f"paths.data={root}", f"paths.splits_json={splits}",
+              f"paths.detections_dir={dets}", "main.version=v1.0-trainval",
+              "detections.megvii.train=train.json", "detections.megvii.val=val.json",
+              "main.sensors_used.img=false", "graph_construction.batch_size_graph=3"):
+        sets += ["--set", s]
+    main(["validate-data", "--strict", *sets])
+    for modality in ("img", "lidar", "radar"):
+        assert main(["preprocess", "--modality", modality, *sets])[modality]["annotations"]
+    assert len(glob.glob(f"{out}/nuscenes/preprocessed/lidar/*.npy")) > 10
+    said = main(["build-graphs", "--device", "cpu", *sets])
+    assert said["modalities"] > 0 and len(glob.glob(f"{out}/nuscenes/graphs/*.b3d")) == 2
+    main(["export-gt", "--out", f"{out}/gt.json", *sets])
+    try:
+        main(["build-graphs", "--device", "cpu", *sets, "--set", "main.sensors_used.img=true",
+              "--set", f"paths.graphs_dir={out}/img"])
+    except ImportError as err:
+        assert "PIL" in str(err)
+    else:
+        raise AssertionError("an image request ran without PIL")
+    bad = sorted(m for m in sys.modules if sys.modules[m] is not None and m.split(".")[0] in
+                 ("jax", "flax", "optax", "msgpack", "batch3dmot_tpu", "PIL", "yaml"))
+    assert not bad, bad
+    print("ok")
+    """
+)
+
+
+def test_data_plane_runs_without_pil_and_yaml(tmp_path):
+    """A fabricated tree written here (with PIL); the lidar and radar data
+    plane run on it in a subprocess that cannot import PIL or yaml."""
+    from fab_nusc import make_fab_dataset_multi, make_fab_detections
+
+    root, splits = make_fab_dataset_multi(
+        tmp_path, num_scenes=3, num_samples=4, splits={"train": [0, 1], "val": [2]},
+        version="v1.0-trainval")
+    dets = tmp_path / "dets"
+    for split, toks in (("train", ["scene0", "scene1"]), ("val", ["scene2"])):
+        make_fab_detections(root, "v1.0-trainval", str(dets / f"{split}.json"),
+                            scene_tokens=toks)
+    env = dict(os.environ)
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    env["PATH"] = "/usr/bin:/bin"
+    env["PYTHONPATH"] = str(REPO)
+    proc = subprocess.run(
+        [sys.executable, "-c", DATA_PLANE_SCRIPT, root, splits, str(dets), str(tmp_path / "out")],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.rstrip().endswith("ok")
