@@ -35,6 +35,17 @@
 // the Pallas kernels, but its own chain (edge update, classifier) runs like
 // any other, so a cotangent on it reaches the weights as in plain autograd.
 //
+// ReLU masks (a debug output, ops/fused_mp_train.py::fused_mp_train_masks):
+// given a mask buffer, the kernels also write one byte per hidden unit, 1
+// where the recomputed activation that the unit's `> 0.f` test reads is
+// positive, from that same value: h1, h2, f1, p1 (edge_bwd_kernel) and c1,
+// c2 (node_bwd_kernel) for every layer, and the classifier's three
+// (cls_bwd_kernel), in the order and shapes of ops/fused_mp.py::
+// relu_masks_from_stashes. The three kernels are templates on whether
+// they write masks: the training path passes null and runs the kMasks =
+// false instances, whose code has no mask store at all; the arithmetic is
+// the same either way.
+//
 // Weight gradients: every dW is H_in^T D_out, a product over the edge rows
 // (or the node rows, for the combine MLP and the node projections) of an
 // activation and a cotangent held in the workspace; a bias gradient is a
@@ -123,6 +134,15 @@ struct TParams {
 };
 constexpr int N_TARRAYS = 14;
 
+// Where the recomputed ReLU masks go (one byte per unit, [rows, width]
+// row-major like the workspace), or null: one layer's, and the classifier's.
+struct LayerMasks {
+  unsigned char *h1, *h2, *f1, *p1, *c1, *c2;
+};
+struct ClsMasks {
+  unsigned char *a1, *a2, *a3;
+};
+
 // Workspace regions ([rows, width] row-major; edge rows b * E + e, node
 // rows b * N + n).
 struct Work {
@@ -197,10 +217,11 @@ long long carve(const Params& p, float* base, Work& w) {
 // Classifier backward
 // ---------------------------------------------------------------------------
 
+template <bool kMasks>
 __global__ void __launch_bounds__(NT, 2)
 cls_bwd_kernel(Params p, TParams q, const float* __restrict__ e_fin,
                long long e_win, const float* __restrict__ ds, int logits,
-               Work w, float* __restrict__ dUE) {
+               Work w, float* __restrict__ dUE, ClsMasks mk) {
   extern __shared__ float smem[];
   const int rows = EDGE_ROWS;
   const int ed = p.ed, L1 = p.L1, L2 = p.L2, L3 = p.L3;
@@ -250,18 +271,24 @@ cls_bwd_kernel(Params p, TParams q, const float* __restrict__ e_fin,
   });
   for (int t = threadIdx.x; t < rows * L3; t += blockDim.x) {
     const int r = t / L3, c = t - r * L3;
-    const float v = sA3[t] > 0.f ? sDZ[r] * p.L3w[c] : 0.f;
+    const bool on = sA3[t] > 0.f;
+    const float v = on ? sDZ[r] * p.L3w[c] : 0.f;
     sD3[t] = v;
     if (ok(r)) w.da3[(row0 + r) * L3 + c] = v;
+    if (kMasks && ok(r)) mk.a3[(row0 + r) * L3 + c] = on;
   }
   __syncthreads();
   block_gemm<EDGE_TM>(sD3, L3, L3, q.L2wT, L2, L2, sW, [&](int r, int c, float v) {
-    v = sA2[r * L2 + c] > 0.f ? v : 0.f;
+    const bool on = sA2[r * L2 + c] > 0.f;
+    v = on ? v : 0.f;
+    if (kMasks && ok(r)) mk.a2[(row0 + r) * L2 + c] = on;
     sD2[r * L2 + c] = v;
     if (ok(r)) w.da2[(row0 + r) * L2 + c] = v;
   });
   block_gemm<EDGE_TM>(sD2, L2, L2, q.L1wT, L1, L1, sW, [&](int r, int c, float v) {
-    v = sA1[r * L1 + c] > 0.f ? v : 0.f;
+    const bool on = sA1[r * L1 + c] > 0.f;
+    v = on ? v : 0.f;
+    if (kMasks && ok(r)) mk.a1[(row0 + r) * L1 + c] = on;
     sD1[r * L1 + c] = v;
     if (ok(r)) w.da1[(row0 + r) * L1 + c] = v;
   });
@@ -279,9 +306,11 @@ cls_bwd_kernel(Params p, TParams q, const float* __restrict__ e_fin,
 // [dA | dB] = dc1 C0^T. dX is the cotangent of x_{t+1}. Every product on
 // the tensor cores (tc_gemm.cuh); activations padded by TC_PAD per row;
 // the workspace rows leave shared memory in coalesced pieces.
+template <bool kMasks>
 __global__ void __launch_bounds__(NB_NT, 2)
 node_bwd_kernel(Params p, TParams q, const float* __restrict__ agg,
-                long long agg_win, const float* __restrict__ dX, Work w) {
+                long long agg_win, const float* __restrict__ dX, Work w,
+                LayerMasks mk) {
   extern __shared__ __align__(16) float smem[];
   const int rows = NODE_ROWS;
   const int M2 = 2 * p.M, C1 = p.C1, C2 = p.C2, nd = p.nd;
@@ -317,12 +346,16 @@ node_bwd_kernel(Params p, TParams q, const float* __restrict__ agg,
   // dc2, sC1 becomes dc1
   node_gemm(sDX, lDX, nd, q.C2wT, C2, sW, [&](int r, int c, float v) {
     float& m = sC2[r * lC2 + c];
-    m = m > 0.f ? v : 0.f;
+    const bool on = m > 0.f;
+    if (kMasks && r < nv) mk.c2[(row0 + r) * C2 + c] = on;
+    m = on ? v : 0.f;
   });
   store_rows(sC2, lC2, w.dc2 + row0 * C2, C2, nv);
   node_gemm(sC2, lC2, C2, q.C1wT, C1, sW, [&](int r, int c, float v) {
     float& m = sC1[r * lC1 + c];
-    m = m > 0.f ? v : 0.f;
+    const bool on = m > 0.f;
+    if (kMasks && r < nv) mk.c1[(row0 + r) * C1 + c] = on;
+    m = on ? v : 0.f;
   });
   store_rows(sC1, lC1, w.dc1 + row0 * C1, C1, nv);
   node_gemm(sC1, lC1, C1, q.C0T, M2, sW, [&](int r, int c, float v) {
@@ -340,12 +373,13 @@ node_bwd_kernel(Params p, TParams q, const float* __restrict__ agg,
 // it, in coalesced row pieces (store_rows). dUE holds the cotangent of
 // e_{t+1} on entry and that of e_t on return (each block reads its rows
 // before it overwrites them). Every product on the tensor cores.
+template <bool kMasks>
 __global__ void __launch_bounds__(EB_NT, 1)
 edge_bwd_kernel(Params p, TParams q, const float* __restrict__ npb_all,
                 const float* __restrict__ e_t, const float* __restrict__ e_next,
                 long long e_win, const float* __restrict__ att,
                 const int* __restrict__ src, const int* __restrict__ dst,
-                float* dUE, float* __restrict__ datt, Work w) {
+                float* dUE, float* __restrict__ datt, Work w, LayerMasks mk) {
   extern __shared__ __align__(16) float smem[];
   const int rows = EB_ROWS;
   const int ed = p.ed, ea_w = ed * (p.with_att ? 2 : 1);
@@ -430,7 +464,9 @@ edge_bwd_kernel(Params p, TParams q, const float* __restrict__ npb_all,
   __syncthreads();
   edge_gemm(sA, lA, M, q.P1T, M1, sW, [&](int r, int c, float v) {
     float& m = sP1[r * lM1 + c];
-    m = m > 0.f ? v : 0.f;
+    const bool on = m > 0.f;
+    if (kMasks && ok(r)) mk.p1[(row0 + r) * M1 + c] = on;
+    m = on ? v : 0.f;
   });
   store_rows(sP1, lM1, w.dp1 + row0 * M1, M1, nv);
   // ---- future message: df = dB[src], df1 = (df F1^T) * [f1 > 0] ----
@@ -443,7 +479,9 @@ edge_bwd_kernel(Params p, TParams q, const float* __restrict__ npb_all,
   __syncthreads();
   edge_gemm(sA, lA, M, q.F1T, M1, sW, [&](int r, int c, float v) {
     float& m = sF1[r * lM1 + c];
-    m = m > 0.f ? v : 0.f;
+    const bool on = m > 0.f;
+    if (kMasks && ok(r)) mk.f1[(row0 + r) * M1 + c] = on;
+    m = on ? v : 0.f;
   });
   store_rows(sF1, lM1, w.df1 + row0 * M1, M1, nv);
   // ---- edge update: due = dp1 Pue^T + df1 Fue^T + dUE ----
@@ -456,12 +494,16 @@ edge_bwd_kernel(Params p, TParams q, const float* __restrict__ npb_all,
   store_rows(sU, lU, w.due + row0 * ed, ed, nv);
   edge_gemm(sU, lU, ed, q.W2T, H2, sW, [&](int r, int c, float v) {
     float& m = sH2[r * lH2 + c];
-    m = m > 0.f ? v : 0.f;
+    const bool on = m > 0.f;
+    if (kMasks && ok(r)) mk.h2[(row0 + r) * H2 + c] = on;
+    m = on ? v : 0.f;
   });
   store_rows(sH2, lH2, w.dh2 + row0 * H2, H2, nv);
   edge_gemm(sH2, lH2, H2, q.W1T, H1, sW, [&](int r, int c, float v) {
     float& m = sH1[r * lH1 + c];
-    m = m > 0.f ? v : 0.f;
+    const bool on = m > 0.f;
+    if (kMasks && ok(r)) mk.h1[(row0 + r) * H1 + c] = on;
+    m = on ? v : 0.f;
   });
   store_rows(sH1, lH1, w.dh1 + row0 * H1, H1, nv);
   // ---- [de | datt] = dh1 [We | Watt]^T ----
@@ -850,6 +892,18 @@ void fill_tparams(const long long* toff, const float* tblob, TParams& q) {
 
 }  // namespace
 
+// Bytes of the ReLU masks fused_mp_backward writes for these dims: per
+// layer t = 0 .. depth - 1 in turn h1 [B, E, H1], h2 [B, E, H2], f1 and p1
+// [B, E, M1], c1 [B, N, C1], c2 [B, N, C2]; then the classifier's a1, a2,
+// a3 [B, E, L1 | L2 | L3].
+extern "C" long long fused_mp_train_mask_bytes(const int* dims) {
+  Params p;
+  if (!fill_params(dims, nullptr, nullptr, p)) return -1;
+  const long long er = (long long)p.B * p.E, nr = (long long)p.B * p.N;
+  const long long layer = er * (p.H1 + p.H2 + 2 * p.M1) + nr * (p.C1 + p.C2);
+  return p.depth * layer + er * (p.L1 + p.L2 + p.L3);
+}
+
 // Floats of workspace that fused_mp_backward needs for these dims.
 extern "C" long long fused_mp_train_workspace(const int* dims) {
   Params p;
@@ -864,15 +918,17 @@ extern "C" long long fused_mp_train_workspace(const int* dims) {
 // null (no attention input; datt is then null too). work: workspace of
 // fused_mp_train_workspace(dims) floats. Outputs: dx0 [B, N, nd]; de0
 // [B, E, ed] (also the carried cotangent of e_t); datt [B, E, ed] and dblob
-// (the weight blob's layout) must be zero on entry and receive sums.
-// Returns the first CUDA error (0 on success); nothing is synchronised.
+// (the weight blob's layout) must be zero on entry and receive sums; masks
+// null, or fused_mp_train_mask_bytes(dims) bytes that receive the ReLU
+// masks. Returns the first CUDA error (0 on success); nothing is
+// synchronised.
 extern "C" int fused_mp_backward(
     const int* dims, const long long* woff, const float* wblob,
     const long long* toff, const float* tblob, const float* ds,
     const float* xs, const float* es, const float* agg, const float* att,
     const int* src, const int* dst, const int* doff, const int* dperm,
     const int* soff, const int* sperm, float* work, float* dx0, float* de0,
-    float* datt, float* dblob, void* stream_ptr) {
+    float* datt, float* dblob, unsigned char* masks, void* stream_ptr) {
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
   Params p;
   if (!fill_params(dims, woff, wblob, p)) return cudaErrorInvalidValue;
@@ -902,9 +958,12 @@ extern "C" int fused_mp_backward(
   const size_t dx0_smem = (size_t)nr * 2 * M1 * f + sw;
   cudaError_t err;
   if ((err = allow_smem(proj_kernel, proj_smem))) return err;
-  if ((err = allow_smem(cls_bwd_kernel, cls_smem))) return err;
-  if ((err = allow_smem(node_bwd_kernel, nbwd_smem))) return err;
-  if ((err = allow_smem(edge_bwd_kernel, ebwd_smem))) return err;
+  if ((err = allow_smem(cls_bwd_kernel<false>, cls_smem))) return err;
+  if ((err = allow_smem(cls_bwd_kernel<true>, cls_smem))) return err;
+  if ((err = allow_smem(node_bwd_kernel<false>, nbwd_smem))) return err;
+  if ((err = allow_smem(node_bwd_kernel<true>, nbwd_smem))) return err;
+  if ((err = allow_smem(edge_bwd_kernel<false>, ebwd_smem))) return err;
+  if ((err = allow_smem(edge_bwd_kernel<true>, ebwd_smem))) return err;
   if ((err = allow_smem(node_scatter_kernel, scat_smem))) return err;
   if ((err = allow_smem(dx0_kernel, dx0_smem))) return err;
   if ((err = allow_smem(wgrad_kernel, WG_SMEM))) return err;
@@ -923,9 +982,36 @@ extern "C" int fused_mp_backward(
   if ((err = cudaGetLastError())) return err;
 
   // ---- classifier ----
+  // the masks' regions (fused_mp_train_mask_bytes), null without a buffer
+  const long long erows_m = (long long)B * E, nrows_m = (long long)B * N;
+  const long long layer_bytes = erows_m * (H1 + H2 + 2 * M1) + nrows_m * (C1 + C2);
+  auto layer_masks = [&](int t) {
+    LayerMasks m{};
+    if (masks) {
+      unsigned char* base = masks + t * layer_bytes;
+      m.h1 = base;
+      m.h2 = m.h1 + erows_m * H1;
+      m.f1 = m.h2 + erows_m * H2;
+      m.p1 = m.f1 + erows_m * M1;
+      m.c1 = m.p1 + erows_m * M1;
+      m.c2 = m.c1 + nrows_m * C1;
+    }
+    return m;
+  };
+  ClsMasks cmk{};
+  if (masks) {
+    cmk.a1 = masks + depth * layer_bytes;
+    cmk.a2 = cmk.a1 + erows_m * L1;
+    cmk.a3 = cmk.a2 + erows_m * L2;
+  }
+
   const float* e_fin = es + depth * e_slot;
-  cls_bwd_kernel<<<cls_grid, NT, cls_smem, stream>>>(p, q, e_fin, e_win, ds,
-                                                      logits, w, de0);
+  if (masks)
+    cls_bwd_kernel<true><<<cls_grid, NT, cls_smem, stream>>>(p, q, e_fin, e_win, ds,
+                                                            logits, w, de0, cmk);
+  else
+    cls_bwd_kernel<false><<<cls_grid, NT, cls_smem, stream>>>(p, q, e_fin, e_win, ds,
+                                                             logits, w, de0, cmk);
   if ((err = cudaGetLastError())) return err;
   {
     WGPlan wb;
@@ -951,11 +1037,20 @@ extern "C" int fused_mp_backward(
     const float* agg_t = agg + t * a_slot;
     proj_kernel<<<proj_grid, NT, proj_smem, stream>>>(p, x_t, x_win, w.npb, QW);
     if ((err = cudaGetLastError())) return err;
-    node_bwd_kernel<<<node_grid, NB_NT, nbwd_smem, stream>>>(p, q, agg_t, a_win,
-                                                           dX_in, w);
+    const LayerMasks mk = layer_masks(t);
+    if (masks)
+      node_bwd_kernel<true><<<node_grid, NB_NT, nbwd_smem, stream>>>(p, q, agg_t, a_win,
+                                                                   dX_in, w, mk);
+    else
+      node_bwd_kernel<false><<<node_grid, NB_NT, nbwd_smem, stream>>>(p, q, agg_t, a_win,
+                                                                    dX_in, w, mk);
     if ((err = cudaGetLastError())) return err;
-    edge_bwd_kernel<<<edge_grid, EB_NT, ebwd_smem, stream>>>(
-        p, q, w.npb, e_t, e_n, e_win, att, src, dst, de0, datt, w);
+    if (masks)
+      edge_bwd_kernel<true><<<edge_grid, EB_NT, ebwd_smem, stream>>>(
+          p, q, w.npb, e_t, e_n, e_win, att, src, dst, de0, datt, w, mk);
+    else
+      edge_bwd_kernel<false><<<edge_grid, EB_NT, ebwd_smem, stream>>>(
+          p, q, w.npb, e_t, e_n, e_win, att, src, dst, de0, datt, w, mk);
     if ((err = cudaGetLastError())) return err;
     node_scatter_kernel<<<node_grid, NB_NT, scat_smem, stream>>>(
         p, q, doff, dperm, soff, sperm, w, dX_out);

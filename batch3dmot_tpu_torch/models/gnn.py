@@ -12,7 +12,10 @@ Every tensor carries a leading window dimension ``[B, ...]`` (the JAX
 package vmaps one window; here the batch is written out). Gathers index the
 node rows by ``edge_src``/``edge_dst``; the two scatter-adds of each layer
 (past messages by destination, future messages by source) skip padded
-edges. Parameter names follow the upstream PyTorch state dict, so
+edges. Every gather whose input takes a gradient goes through
+``ops/segment.py::gather_rows``, whose backward is a segment sum in a fixed
+order (no atomics), so training is bit-reproducible on the card in both
+kNN-conv modes. Parameter names follow the upstream PyTorch state dict, so
 ``utils/torch_import.py::import_mm_gnn`` reads the port's state dict.
 
 ``knn_conv_mode='noop'`` (the default) skips the frame-wise kNN GATConv,
@@ -39,11 +42,9 @@ from batch3dmot_tpu_torch.models.layers import (
     MLP,
     GATConv,
     SingleTokenAttention,
-    gather_nodes,
-    gather_rows,
 )
 from batch3dmot_tpu_torch.ops.knn import knn_graph_masked
-from batch3dmot_tpu_torch.ops.segment import segment_sum
+from batch3dmot_tpu_torch.ops.segment import gather_rows, segment_sum
 
 
 def _check_knn_mode(knn_conv_mode: str) -> None:
@@ -100,9 +101,12 @@ class CausalMessagePassing(nn.Module):
         edge_mask: torch.Tensor,  # [B, E] bool
         att_edge_attr: Optional[torch.Tensor] = None,  # [B, E, edge_dim]
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        n = x.shape[-2]
-        x_j, x_i = gather_nodes(x, src), gather_nodes(x, dst)
-        init_j, init_i = gather_nodes(initial_x, src), gather_nodes(initial_x, dst)
+        n, d, e = x.shape[-2], x.shape[-1], src.shape[-1]
+        # one gather of [x | initial_x] at [src | dst]: one fixed-order sum
+        # in the backward (gather_rows) instead of four
+        rows = gather_rows(torch.cat([x, initial_x], dim=-1), torch.cat([src, dst], dim=-1))
+        x_j, init_j = rows[..., :e, :d], rows[..., :e, d:]
+        x_i, init_i = rows[..., e:, :d], rows[..., e:, d:]
 
         edge_in = [x_i, x_j, edge_attr]
         if att_edge_attr is not None:

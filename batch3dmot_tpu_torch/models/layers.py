@@ -11,39 +11,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from batch3dmot_tpu_torch.ops.segment import segment_softmax, segment_sum
+from batch3dmot_tpu_torch.ops.segment import gather_rows, segment_softmax, segment_sum
 from batch3dmot_tpu_torch.parallel.mesh import active_mesh, all_reduce_autograd
-
-
-def gather_nodes(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Rows of x [B, N, D] at idx [B, E] -> [B, E, D]."""
-    return torch.gather(x, 1, idx.long().unsqueeze(-1).expand(-1, -1, x.shape[-1]))
-
-
-class _GatherRows(torch.autograd.Function):
-    """:func:`gather_nodes` whose backward sums each row's cotangents in a
-    fixed order: the segment sum (its kernel on the card, ``index_add_`` on
-    the CPU) instead of ``torch.gather``'s scatter-add, whose atomics on the
-    card add a row's terms in a different order from run to run."""
-
-    @staticmethod
-    def forward(ctx, x, idx):
-        ctx.save_for_backward(idx)
-        ctx.rows = x.shape[1]
-        return gather_nodes(x, idx)
-
-    @staticmethod
-    def backward(ctx, grad):
-        (idx,) = ctx.saved_tensors
-        return segment_sum(grad.contiguous(), idx, ctx.rows), None
-
-
-def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """:func:`gather_nodes` with a reproducible backward (see
-    ``_GatherRows``) when x takes a gradient."""
-    if torch.is_grad_enabled() and x.requires_grad:
-        return _GatherRows.apply(x, idx)
-    return gather_nodes(x, idx)
 
 
 class MLP(nn.Sequential):
@@ -91,7 +60,8 @@ class GATConv(nn.Module):
     e_ij = LeakyReLU(a_src . (W x_j) + a_dst . (W x_i)); alpha = softmax of
     e over the incoming edges of i; out_i = sum_j alpha_ij (W x_j) + bias.
     The parameters carry PyG's names and shapes (``lin.weight`` [F, F],
-    ``att_src`` and ``att_dst`` [1, 1, F], ``bias`` [F])."""
+    ``att_src`` and ``att_dst`` [1, 1, F], ``bias`` [F]). Its gathers go
+    through :func:`gather_rows` (a fixed-order backward)."""
 
     def __init__(self, features: int, negative_slope: float = 0.2):
         super().__init__()
@@ -113,10 +83,13 @@ class GATConv(nn.Module):
         wx = self.lin(x)
         s_src = (wx @ self.att_src.reshape(-1, 1))[..., 0]  # [B, N]
         s_dst = (wx @ self.att_dst.reshape(-1, 1))[..., 0]
-        alpha = torch.gather(s_src, 1, src.long()) + torch.gather(s_dst, 1, dst.long())
-        alpha = F.leaky_relu(alpha, self.negative_slope)
+        # both score vectors in one gather: [s_src | s_dst] at [src | dst + N]
+        e = src.shape[-1]
+        s = gather_rows(torch.cat([s_src, s_dst], dim=-1)[..., None],
+                        torch.cat([src.long(), dst.long() + n], dim=-1))[..., 0]
+        alpha = F.leaky_relu(s[..., :e] + s[..., e:], self.negative_slope)
         alpha = segment_softmax(alpha, dst, n, edge_mask)
-        msgs = gather_nodes(wx, src) * alpha[..., None]
+        msgs = gather_rows(wx, src) * alpha[..., None]
         return segment_sum(msgs, dst, n, edge_mask) + self.bias
 
 

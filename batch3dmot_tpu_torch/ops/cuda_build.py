@@ -94,10 +94,12 @@ _ARGTYPES = {
     "fused_mp_train": {
         # fused_mp_train_workspace(dims) -> floats
         "fused_mp_train_workspace": (1, ctypes.c_longlong),
+        # fused_mp_train_mask_bytes(dims) -> bytes of the ReLU masks
+        "fused_mp_train_mask_bytes": (1, ctypes.c_longlong),
         # fused_mp_backward(dims, woff, wblob, toff, tblob, ds, xs, es, agg,
         #                   att, src, dst, doff, dperm, soff, sperm, work,
-        #                   dx0, de0, datt, dblob, stream)
-        "fused_mp_backward": (22, ctypes.c_int),
+        #                   dx0, de0, datt, dblob, masks, stream)
+        "fused_mp_backward": (23, ctypes.c_int),
     },
     "segment_sum": {
         # segment_sum_forward(dims, data, ids, mask, out, stream)

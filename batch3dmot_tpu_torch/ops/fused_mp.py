@@ -158,16 +158,22 @@ def _mlp_tail(h, rest, biases, relu=torch.relu):
     return h
 
 
-def relu_masks_from_stashes(stashes, att, src, dst, edge_mask, flat_weights, meta, depth):
-    """The ReLU masks of the training kernels' layers, in the order the
-    plain loop applies its ReLUs: each layer recomputed, as the backward
-    kernel recomputes it, from the forward kernel's stashes ``(x_t, e_t,
-    agg_t)`` (``ops/fused_mp_train.py::train_forward_cuda``): the edge
-    update from x_t and e_t, the messages from x_t, x_0 and e_{t+1}, the
-    combine from the stashed message sums agg_t ([past by destination,
-    future by source]), the classifier from e_depth. The recompute runs in
-    the stashes' dtype: float64 stashes and weights give the exact signs
-    for the stashed inputs."""
+def relu_preactivations_from_stashes(stashes, att, src, dst, edge_mask, flat_weights,
+                                     meta, depth):
+    """The pre-activation z of every ReLU unit of the training kernels'
+    layers and its scale, ``[(z, scale), ...]`` in the order the plain loop
+    applies its ReLUs: each layer recomputed, as the backward kernel
+    recomputes it, from the forward kernel's stashes ``(x_t, e_t, agg_t)``
+    (``ops/fused_mp_train.py::train_forward_cuda``): the edge update from
+    x_t and e_t, the messages from x_t, x_0 and e_{t+1}, the combine from
+    the stashed message sums agg_t ([past by destination, future by
+    source]), the classifier from e_depth. The recompute runs in the
+    stashes' dtype.
+
+    ``scale`` is sum_k |w_k a_k| + |b| for a layer whose inputs a_k are
+    stashes; for a layer fed by a recomputed hidden layer, that layer's
+    own scale takes the place of |a_k| (an upper bound of it): what bounds
+    the rounding error of z in any summation order."""
     (eu0, eu_rest, eu_b, fut0, fut_rest, fut_b, past0, past_rest, past_b,
      comb0, comb_rest, comb_b, cls_w, cls_b) = _unpack(meta, flat_weights)
     xs, es, agg = stashes
@@ -176,34 +182,53 @@ def relu_masks_from_stashes(stashes, att, src, dst, edge_mask, flat_weights, met
     src_f = (src.long() + offs).reshape(-1)
     dst_f = (dst.long() + offs).reshape(-1)
     mask_f = edge_mask[..., None].to(xs.dtype)
-    masks = []
-
-    def record(v):
-        masks.append(v > 0)
-        return torch.relu(v)
+    out = []
 
     def gather(x, idx):
         return x.reshape(b * n, -1)[idx].reshape(*src.shape, -1) * mask_f
+
+    def product(pairs):
+        """sum of a @ w over (a, w) and its scale, sum of |a| @ |w|."""
+        z = pairs[0][0] @ pairs[0][1]
+        for a, w in pairs[1:]:
+            z = z + a @ w
+        return z, sum(a.abs() @ w.abs() for a, w in pairs)
+
+    def tail(h, scale, rest, biases):
+        """The ReLU layers of an MLP whose first product is h: after the
+        first layer and after every later one but the last."""
+        z, scale = h + biases[0], scale + biases[0].abs()
+        out.append((z, scale))
+        for w, bias in zip(rest[:-1], biases[1:]):
+            z, scale = torch.relu(z) @ w + bias, scale @ w.abs() + bias.abs()
+            out.append((z, scale))
 
     with torch.no_grad():
         init_i, init_j = gather(xs[:, 0], dst_f), gather(xs[:, 0], src_f)
         for t in range(depth):
             x_i, x_j = gather(xs[:, t], dst_f), gather(xs[:, t], src_f)
-            h = x_i @ eu0[0] + x_j @ eu0[1] + es[:, t] @ eu0[2]
+            parts = [(x_i, eu0[0]), (x_j, eu0[1]), (es[:, t], eu0[2])]
             if att is not None:
-                h = h + att @ eu0[3]
-            _mlp_tail(h, eu_rest, eu_b, record)
+                parts.append((att, eu0[3]))
+            tail(*product(parts), eu_rest, eu_b)
             ue = es[:, t + 1]
-            _mlp_tail(x_i @ fut0[0] + ue @ fut0[1] + init_i @ fut0[2], fut_rest, fut_b, record)
-            _mlp_tail(x_j @ past0[0] + ue @ past0[1] + init_j @ past0[2], past_rest, past_b,
-                      record)
-            _mlp_tail(agg[:, t] @ torch.cat(comb0, dim=0), comb_rest, comb_b, record)
-        h = es[:, depth]
-        for i, (w, bias) in enumerate(zip(cls_w, cls_b)):
-            h = h @ w + bias
-            if i < len(cls_w) - 1:
-                h = record(h)
-    return masks
+            tail(*product([(x_i, fut0[0]), (ue, fut0[1]), (init_i, fut0[2])]), fut_rest, fut_b)
+            tail(*product([(x_j, past0[0]), (ue, past0[1]), (init_j, past0[2])]), past_rest,
+                 past_b)
+            tail(*product([(agg[:, t], torch.cat(comb0, dim=0))]), comb_rest, comb_b)
+        h, scale = product([(es[:, depth], cls_w[0])])
+        tail(h, scale, cls_w[1:], cls_b)
+    return out
+
+
+def relu_masks_from_stashes(stashes, att, src, dst, edge_mask, flat_weights, meta, depth):
+    """The ReLU masks (z > 0) of :func:`relu_preactivations_from_stashes`:
+    float64 stashes and weights give the exact signs for the stashed
+    inputs. ``ops/fused_mp_train.py::fused_mp_train_masks`` returns the
+    masks the backward kernel itself took, in this order and these shapes;
+    ``fused_mp_scores_plain(..., relu_masks=)`` replays either."""
+    return [z > 0 for z, _ in relu_preactivations_from_stashes(
+        stashes, att, src, dst, edge_mask, flat_weights, meta, depth)]
 
 
 def fused_mp_scores_plain(x0, e0, att, src, dst, edge_mask, flat_weights,
@@ -215,7 +240,8 @@ def fused_mp_scores_plain(x0, e0, att, src, dst, edge_mask, flat_weights,
     [B, depth, N, nd] (t < depth), e_t [B, depth + 1, E, ed] (t <= depth)
     and agg_t [B, depth, N, 2M] ([past by destination, future by source]).
 
-    ``relu_masks`` (:func:`relu_masks_from_stashes`; off by default) replays
+    ``relu_masks`` (:func:`relu_masks_from_stashes`, or the backward
+    kernel's own from ``fused_mp_train_masks``; off by default) replays
     given ReLU masks instead of the signs of this run's pre-activations, to
     compare gradients under one set of branches (a unit whose
     pre-activation lies within rounding of zero may take either branch in

@@ -14,7 +14,9 @@ fallback have no counterpart here.
 
 :func:`fused_mp_train_scores` launches the pair for CUDA tensors (or
 raises) and differentiates :func:`fused_mp_scores_plain` with autograd for
-CPU tensors. Gradients reach the ``nn.Linear`` parameters through
+CPU tensors. :func:`fused_mp_train_masks`, a debug entry beside it, runs the
+pair once with the backward's ReLU masks written out (the training path
+writes none). Gradients reach the ``nn.Linear`` parameters through
 ``extract_mp_params(..., trainable=True)``; the stages before the loop
 (encoders, attention, attribute encoders) are differentiated by autograd.
 """
@@ -37,6 +39,7 @@ from batch3dmot_tpu_torch.ops.fused_mp import (
     mp_arrays,
     pack_arrays,
     ptr,
+    relu_masks_from_stashes,
 )
 
 # Arrays of the weight blob (``mp_arrays`` order) whose transposes the
@@ -96,6 +99,68 @@ def train_forward_cuda(x0, e0, att, src, dst, edge_mask, flat, meta, depth,
     return out, xs, es, agg, k
 
 
+def _mask_views(buf, widths, b, n, e, depth):
+    """The backward's mask buffer as boolean views in
+    :func:`relu_masks_from_stashes`' order and shapes (per layer h1, h2, f1,
+    p1 [B, E, .], c1, c2 [B, N, .]; then the classifier's three [B, E, .]),
+    the layout of ``fused_mp_train_mask_bytes``."""
+    w = widths
+    shapes = [(e, w["H1"]), (e, w["H2"]), (e, w["M1"]), (e, w["M1"]),
+              (n, w["C1"]), (n, w["C2"])] * depth
+    shapes += [(e, w["L1"]), (e, w["L2"]), (e, w["L3"])]
+    total = sum(b * rows * cols for rows, cols in shapes)
+    if total != buf.numel():
+        raise ValueError(f"fused MP training backward: {buf.numel()} mask bytes, "
+                         f"the layout has {total}")
+    views, pos = [], 0
+    for rows, cols in shapes:
+        size = b * rows * cols
+        views.append(buf[pos: pos + size].view(torch.bool).view(b, rows, cols))
+        pos += size
+    return views
+
+
+def train_backward_cuda(saved, meta, kdims, woff, widths, d_out, masks=False):
+    """Launch the backward kernel on the current stream from the forward's
+    saved tensors (:class:`_FusedMPTrain`'s ``save_for_backward`` order).
+    Returns (dx0, de0, datt, gradients of the flat weights) and, with
+    ``masks``, the ReLU masks the kernel took (:func:`_mask_views`)."""
+    (xs, es, agg, att, src_m, dst_m, doff, dperm, soff, sperm, blob, *flat) = saved
+    b, _, n, nd = xs.shape
+    e, ed = es.shape[2], es.shape[3]
+    arrays = mp_arrays(flat, meta)
+    tblob, toff = pack_arrays([arrays[i].t() for i in _TRANSPOSED])
+    lib = cuda_build.load("fused_mp_train")
+    n_work = lib.fused_mp_train_workspace(host_ptr(kdims))
+    if n_work < 0:
+        raise ValueError("fused MP training backward: unsupported widths")
+    f32 = dict(dtype=torch.float32, device=xs.device)
+    work = torch.empty(n_work, **f32)
+    ds = d_out.to(torch.float32).contiguous()
+    dx0 = torch.empty(b, n, nd, **f32)
+    de0 = torch.empty(b, e, ed, **f32)
+    datt = None if att is None else torch.zeros(b, e, ed, **f32)
+    dblob = torch.zeros_like(blob)
+    mbuf = None
+    if masks:
+        mbuf = torch.empty(lib.fused_mp_train_mask_bytes(host_ptr(kdims)),
+                           dtype=torch.uint8, device=xs.device)
+    err = lib.fused_mp_backward(
+        host_ptr(kdims), host_ptr(woff), ptr(blob), host_ptr(toff),
+        ptr(tblob), ptr(ds), ptr(xs), ptr(es), ptr(agg), ptr(att),
+        ptr(src_m), ptr(dst_m), ptr(doff), ptr(dperm), ptr(soff),
+        ptr(sperm), ptr(work), ptr(dx0), ptr(de0), ptr(datt), ptr(dblob),
+        ptr(mbuf), _stream(xs),
+    )
+    if err != 0:
+        raise RuntimeError(f"fused MP training backward failed: CUDA error {err}")
+    fused_mp_train_scores.bwd_launches += 1
+    grads = (dx0, de0, datt, *_flat_grads(dblob, woff, flat, meta))
+    if not masks:
+        return grads
+    return grads, _mask_views(mbuf, widths, b, n, e, xs.shape[1])
+
+
 class _FusedMPTrain(torch.autograd.Function):
     """Scores [B, E] of the message-passing loop and the edge classifier;
     the forward kernel stashes x_t, e_t and the per-node message sums, the
@@ -105,7 +170,7 @@ class _FusedMPTrain(torch.autograd.Function):
     def forward(ctx, x0, e0, att, src, dst, edge_mask, meta, depth, logits, *flat):
         out, xs, es, agg, k = train_forward_cuda(
             x0, e0, att, src, dst, edge_mask, flat, meta, depth, logits)
-        ctx.meta, ctx.kdims, ctx.woff = meta, k["dims"], k["woff"]
+        ctx.meta, ctx.kdims, ctx.woff, ctx.widths = meta, k["dims"], k["woff"], k["widths"]
         ctx.save_for_backward(
             xs, es, agg, att, k["src"], k["dst"], k["doff"], k["dperm"],
             k["soff"], k["sperm"], k["blob"], *flat,
@@ -114,35 +179,45 @@ class _FusedMPTrain(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, d_out):
-        (xs, es, agg, att, src_m, dst_m, doff, dperm, soff, sperm, blob,
-         *flat) = ctx.saved_tensors
-        b, _, n, nd = xs.shape
-        e, ed = es.shape[2], es.shape[3]
-        arrays = mp_arrays(flat, ctx.meta)
-        tblob, toff = pack_arrays([arrays[i].t() for i in _TRANSPOSED])
-        lib = cuda_build.load("fused_mp_train")
-        n_work = lib.fused_mp_train_workspace(host_ptr(ctx.kdims))
-        if n_work < 0:
-            raise ValueError("fused MP training backward: unsupported widths")
-        f32 = dict(dtype=torch.float32, device=xs.device)
-        work = torch.empty(n_work, **f32)
-        ds = d_out.to(torch.float32).contiguous()
-        dx0 = torch.empty(b, n, nd, **f32)
-        de0 = torch.empty(b, e, ed, **f32)
-        datt = None if att is None else torch.zeros(b, e, ed, **f32)
-        dblob = torch.zeros_like(blob)
-        err = lib.fused_mp_backward(
-            host_ptr(ctx.kdims), host_ptr(ctx.woff), ptr(blob), host_ptr(toff),
-            ptr(tblob), ptr(ds), ptr(xs), ptr(es), ptr(agg), ptr(att),
-            ptr(src_m), ptr(dst_m), ptr(doff), ptr(dperm), ptr(soff),
-            ptr(sperm), ptr(work), ptr(dx0), ptr(de0), ptr(datt), ptr(dblob),
-            _stream(xs),
-        )
-        if err != 0:
-            raise RuntimeError(f"fused MP training backward failed: CUDA error {err}")
-        fused_mp_train_scores.bwd_launches += 1
-        dflat = _flat_grads(dblob, ctx.woff, flat, ctx.meta)
+        dx0, de0, datt, *dflat = train_backward_cuda(
+            ctx.saved_tensors, ctx.meta, ctx.kdims, ctx.woff, ctx.widths, d_out)
         return (dx0, de0, datt, None, None, None, None, None, None, *dflat)
+
+
+def fused_mp_train_masks(x0, e0, att, src, dst, edge_mask, flat, meta, depth,
+                         d_out, logits=False):
+    """Debug entry: the training pair once, outside autograd, under the
+    cotangent ``d_out`` [B, E] of the scores, with the ReLU masks its
+    backward took. Returns (scores, stashes (x_t, e_t, agg_t), gradients
+    (dx0, de0, datt, then one per flat weight), masks in
+    :func:`relu_masks_from_stashes`' order).
+
+    CUDA tensors: the forward kernel, then the backward kernel writing each
+    mask from the value its ``> 0`` test reads (the arithmetic is the
+    training path's). CPU tensors: autograd of :func:`fused_mp_scores_plain`
+    and :func:`relu_masks_from_stashes` on its own stashes, in their dtype."""
+    flat = tuple(w.detach() for w in flat)
+    if x0.device.type == "cuda":
+        with torch.no_grad():
+            out, xs, es, agg, k = train_forward_cuda(
+                x0, e0, att, src, dst, edge_mask, flat, meta, depth, logits)
+            saved = (xs, es, agg, att, k["src"], k["dst"], k["doff"], k["dperm"],
+                     k["soff"], k["sperm"], k["blob"], *flat)
+            grads, masks = train_backward_cuda(saved, meta, k["dims"], k["woff"],
+                                               k["widths"], d_out, masks=True)
+        return out, (xs, es, agg), grads, masks
+    if x0.device.type != "cpu":
+        raise ValueError(f"fused MP training: unsupported device {x0.device}")
+    leaves = [None if t is None else t.detach().requires_grad_() for t in (x0, e0, att, *flat)]
+    with torch.enable_grad():
+        out, xs, es, agg = fused_mp_scores_plain(*leaves[:3], src, dst, edge_mask, leaves[3:],
+                                                 meta, depth, logits, carries=True)
+        wanted = [t for t in leaves if t is not None]
+        got = iter(torch.autograd.grad(out, wanted, d_out, allow_unused=True))
+    grads = tuple(None if t is None else next(got) for t in leaves)
+    stashes = (xs.detach(), es.detach(), agg.detach())
+    masks = relu_masks_from_stashes(stashes, att, src, dst, edge_mask, flat, meta, depth)
+    return out.detach(), stashes, grads, masks
 
 
 def fused_mp_train_scores(x0, e0, att, src, dst, edge_mask, flat, meta, depth,

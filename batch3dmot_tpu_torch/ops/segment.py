@@ -6,8 +6,10 @@ future messages by source node, and the kNN GATConv sums its softmax
 denominator and its messages by destination: all through
 :func:`segment_sum`, the dispatcher of the Hopper kernel
 (``ops/segment_kernel.py``). :func:`segment_max`, :func:`segment_mean` and
-:func:`segment_softmax` build on it. Every function takes leading window
-dimensions ``[..., E]``; masked edges reach no segment.
+:func:`segment_softmax` build on it. :func:`gather_rows`, the models' and
+:func:`segment_softmax`'s gather, differentiates into a segment sum. Every
+function takes leading window dimensions ``[..., E]``; masked edges reach
+no segment.
 """
 
 from __future__ import annotations
@@ -19,7 +21,44 @@ import torch
 
 from batch3dmot_tpu_torch.ops.segment_kernel import gather_segments, segment_sum
 
-__all__ = ["segment_max", "segment_mean", "segment_softmax", "segment_sum"]
+__all__ = ["gather_rows", "segment_max", "segment_mean", "segment_softmax", "segment_sum"]
+
+
+class _GatherRows(torch.autograd.Function):
+    """:func:`gather_segments` whose backward sums each row's cotangents in
+    a fixed order: the segment sum (B8's kernel on the card, ``index_add_``
+    on the CPU) over the gathered positions, instead of ``torch.gather``'s
+    scatter-add, whose atomics on the card add a row's terms in a different
+    order from run to run. The forward is the same gather, bit for bit."""
+
+    @staticmethod
+    def forward(ctx, x, ids):
+        ids = ids.long().clamp(0, x.shape[-2] - 1)
+        ctx.save_for_backward(ids)
+        ctx.rows = x.shape[-2]
+        return gather_segments(x, ids)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (ids,) = ctx.saved_tensors
+        return segment_sum(grad.contiguous(), ids, ctx.rows), None
+
+
+def gather_rows(x: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Rows of x [..., N, D] at ids [..., E] -> [..., E, D] (ids outside
+    [0, N) clamped, as a JAX gather clamps them), with a reproducible
+    backward (``_GatherRows``: one segment sum of D columns) when x takes a
+    gradient; a plain gather otherwise, so inference launches nothing.
+
+    Every gather of the models whose input takes a gradient goes through
+    it: ``MultimodalGNN.pre_message_passing`` (the attention rows),
+    ``CausalMessagePassing`` (``[x | initial_x]`` at ``[src | dst]``, one
+    call per layer), ``GATConv`` (both attention-score vectors in one call,
+    D = 1, and the messages) and :func:`segment_softmax` (the segment max
+    and the denominator, D = 1)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _GatherRows.apply(x, ids)
+    return gather_segments(x, ids)
 
 
 def segment_max(
@@ -31,7 +70,11 @@ def segment_max(
 ) -> torch.Tensor:
     """Max-reduce ``data[..., e, :]`` into ``out[..., ids[..., e], :]``;
     empty segments get ``initial``. data: [..., E, H]. Masked edges are
-    parked in an extra segment that is dropped."""
+    parked in an extra segment that is dropped. The gradient flows through
+    the max, as in the JAX package. A max is exact in any order, so the
+    value does not depend on the order of ``scatter_reduce``'s atomics; its
+    backward counts each segment's ties by adding ones, exact in any order
+    too."""
     lead = ids.shape[:-1]
     h = data.shape[-1]
     extra = 0
@@ -76,11 +119,11 @@ def segment_softmax(
     if squeeze:
         scores = scores[..., None]
     seg_max = segment_max(scores, ids, num_segments, mask, initial=0.0)
-    shifted = scores - gather_segments(seg_max, ids)
+    shifted = scores - gather_rows(seg_max, ids)
     if mask is not None:
         shifted = torch.where(mask[..., None], shifted, float("-inf"))
     expd = torch.exp(shifted)
     expd = torch.where(torch.isfinite(expd), expd, 0.0)
     denom = segment_sum(expd, ids, num_segments, mask)
-    out = expd / gather_segments(denom, ids).clamp_min(1e-16)
+    out = expd / gather_rows(denom, ids).clamp_min(1e-16)
     return out[..., 0] if squeeze else out

@@ -22,8 +22,8 @@ kernels they ran. Then this process runs the same paths alone
 (:func:`compare`); a rank's failure or a mismatch fails the run. With
 ``--out`` every rank saves its results (losses, scores, the trained states,
 the summed gradients of the one-step paths, the kernel wrappers' launch
-counts) to ``DIR/rank{r}.pt``, and the comparison goes to
-``DIR/check.json``.
+counts, and the active step's segment-sum launches) to ``DIR/rank{r}.pt``,
+and the comparison goes to ``DIR/check.json``.
 """
 
 from __future__ import annotations
@@ -119,7 +119,10 @@ def run_paths(mesh, n: int, device=None, say=print) -> dict:
     trainer = GNNTrainer(make_model("mm", depth=2), cfg, **kw)
     finite("mm_step", float(trainer.train_step(batch)[0]))
     active = GNNTrainer(make_model("mm", depth=2, knn_conv_mode="active"), cfg, **kw)
+    before = launch_counts()["segment_sum"]
     finite("active_step", float(active.train_step(batch)[0]))
+    # the segment-sum kernel's launches of that step (0 on the CPU)
+    out["active_step_launches"] = launch_counts()["segment_sum"] - before
     for name, tr in (("mm_step", trainer), ("active_step", active)):
         keep_state(name, tr)
         keep_grads(name, tr)
@@ -312,6 +315,7 @@ def main(argv=None) -> int:
     if args.out is not None:
         with open(f"{args.out}/check.json", "w") as f:
             json.dump(dict(worst, counters=[r["counters"] for r in ranks],
+                           active_step_launches=[r["active_step_launches"] for r in ranks],
                            collectives=[r["collectives"] for r in ranks],
                            captured=[r.get("captured") for r in ranks]), f)
     return 0

@@ -10,15 +10,26 @@ Phases, each fatal on failure:
      card, on inputs made from a numpy seed, at the shapes the main path
      gives it and beyond (up to the largest bucket, and the device
      pipeline's windows up to (1024, 40960)), compared on valid edges, and
-     bit-identical across two runs; then the training pair (the stashing forward and the
-     hand-written backward) against autograd of the plain version: scores
-     and stashes, and dx0, de0, datt and every weight gradient under a
-     random cotangent that is non-zero on every edge, masked ones too; the
-     backward run twice must give bit-identical gradients; the stashes
-     x_t, e_t and agg_t against the plain loop's; the kernel's gradients
-     also against the plain version replaying the ReLU masks recomputed in
-     float64 from the kernel's stashes, printed beside the first
-     comparison and held to the same bounds;
+     bit-identical across two runs;
+  2b. the training pair (the stashing forward and the hand-written
+     backward) against autograd of the plain version (``training_pair_
+     checks``), six cases: scores and the stashes x_t, e_t, agg_t at RTOL,
+     ATOL; dx0, de0, datt and every weight gradient under a random
+     cotangent that is non-zero on every edge, masked ones too, against
+     the plain version's own branches (a reading: a tensor with ReLU-tie
+     outliers is held to a relative L2 error of MAX_REL_L2) and against it
+     replaying the float64 masks of the kernel's stashes (a reading); then
+     the checks, under the ReLU masks the backward kernel itself took (its
+     debug mask output, ``fused_mp_train_masks``): (a) every mask that
+     differs from the float64 sign lies within RELU_TAU (a derived bound
+     of the 3xTF32 recompute's error) of zero, counted per case; (b) the
+     plain version replaying them gives every gradient tensor at
+     GRAD_RTOL, GRAD_ATOL x max|plain| element by element, no L2 escape;
+     (c) a control, one unit flipped (the largest |z64| of layer 3's c1,
+     the combine's first hidden layer, on a node a valid edge touches),
+     must fail both; (d) the backward
+     with the mask buffer gives the training path's gradients bit for bit,
+     and the training path twice too;
   2c. the segment-sum kernel against its plain version at the shapes of the
      knn_conv_mode='active' path (message passing, GAT messages and softmax
      denominators), the largest bucket (D 128 and D 1), int64 ids (as the
@@ -56,18 +67,24 @@ Phases, each fatal on failure:
      and on every window with the kernel run's kNN graphs replayed in the
      plain run;
   3d. active training: ``GNNTrainer`` steps for ``mm`` from encodings and
-     ``pose`` from window batches; 18 launches per step (mm 20: its
-     attention rows' gathers add two in the backward), frozen encoders
-     unchanged, 3 steps through the kernel and 3 through the plain version
-     agree, 10 more lower the loss;
+     ``pose`` from window batches; every gather's backward is a segment
+     sum (``gather_rows``): launches per step exactly
+     ``active_step_launches`` (mm 38, pose 36: 18 forward segment sums and
+     one per gather in the backward); a second run of the 4 steps from the
+     same state gives bit-identical parameters and Adam moments (the same
+     two runs through ``torch.gather``'s atomic backward printed beside);
+     frozen encoders unchanged, 3 steps through the kernel and 3 through
+     the plain version agree, 10 more lower the loss;
   3e. device-resident training on the same 48 windows and encodings: one
      epoch of ``fit_device`` (each step a replay of one captured CUDA graph)
      against host ``train_step``s on the same index rows, loss by loss; the
      dedup form against the dense one (the gathered batches bit-identical);
      ``fused_steps=4`` against eager steps, with one host wait per group;
      the ``'noop'`` ``PoseGNN`` through ``fit`` and ``fit_device``; the
-     active ``mm`` through ``fit_device`` (18 segment sums per step) against
-     eager steps; for each graphed path an epoch of replays alone, traced
+     active ``mm`` through ``fit_device`` (38 segment sums per step) against
+     eager steps, a second epoch from the same start bit-identical, and an
+     epoch under ``use_deterministic_algorithms(True, warn_only=True)``
+     with no op that torch flags; for each graphed path an epoch of replays alone, traced
      by the profiler, runs each of the port's kernels exactly steps times
      as often as one eager step does, and no wrapper launches anything;
   3f. the device inference pipeline on the same 4 scenes (window 5, kNN
@@ -80,10 +97,17 @@ Phases, each fatal on failure:
      ``predict_scene_device`` -> tracks -> AMOTA (its predicted edges
      against phase 3's, every difference at a near-tie of the two paths'
      averages; ``predict_scenes_device`` equal to it); float16 point
-     uploads (``point_dtype``) against float32 ones; the active model's
-     pipeline (18 segment sums per forward) against the plain segment sum
-     with its kNN graphs replayed; scoring from 3b's precomputed encodings
-     (float32 and float16 transport) against the raw encode;
+     uploads (``point_dtype``) against float32 ones; then the same
+     comparisons (host path, plain version, grouped, predicted edges at
+     near-ties) on ``responsive_model`` of the phase-3 model, whose scores
+     move with the embeddings (their quantiles printed), with controls
+     that must fail: camera and lidar features zeroed put averaged edges
+     outside RTOL, ATOL; the radar features held at the encoding level
+     (the pipeline's against the scorer's), zeroed ones outside; the
+     active model's pipeline (18 segment sums per forward) against the
+     plain segment sum with its kNN graphs replayed; scoring from 3b's
+     precomputed encodings (float32 and float16 transport) against the
+     raw encode;
   3g. training and checkpoints from disk: the 4 scenes written as ``.b3d``
      stores with their metadata sidecars; the native loader built by g++
      from ``native/graphstore.cc`` (its failure fails the phase, with the
@@ -131,7 +155,8 @@ Phases, each fatal on failure:
      forms (``fit``, ``fit_device`` dense and dedup, ``fused_steps=4``):
      wall ms, edges/s, device busy share and Adam's device ms; the segment-sum kernel
      beside its plain version and ``index_add_`` with its device time per
-     call, the active paths' edges/s, profile and train step; (4d) the
+     call, the active paths' edges/s, profile and train step (also beside
+     the same step through ``torch.gather``'s atomic backward, in turns); (4d) the
      device pipeline's wall ms, valid edges/s and device busy share, per
      scene and grouped, beside ``score_scenes``; singles against a group in
      turns at window 5 (above the grouping ceiling) and window 3 (under
@@ -176,7 +201,11 @@ Phases, each fatal on failure:
      averages against ``predict_scenes`` on the same checkpoint and scenes
      at ``RTOL, ATOL`` (predicted edges, submission and AMOTA equal but at
      near-ties of the two paths' averages, counted), the device pipeline
-     against the encoded predict the same way; (4h) each call's wall time,
+     against the encoded predict the same way; then the same on
+     ``responsive_model`` of the trained checkpoint, written as a port
+     ``.pt`` checkpoint (predict encoded and device through ``cli.main``,
+     launches counted; the score quantiles printed), with a lidar-zeroed
+     control through the API that must fall outside; (4h) each call's wall time,
      predict's rate lines, and the train-gnn epoch beside a ``fit_device``
      epoch of the same dataset through the Python API, in turns;
   3k. the nuScenes data plane through the CLI (in this process, ``--set``
@@ -211,7 +240,9 @@ Phases, each fatal on failure:
      predict's rate lines, the float32 and bfloat16 encodes in turns.
 
 Prints an ``{"encoders": [...]}`` line (4f's timings and 3h's checks),
-the card's name and power limit, a ``{"kernels": [...]}`` line and, last,
+the card's name and power limit, a ``{"kernels": [...]}`` line (the
+backward's entry with 2b's mask readings, the segment sum's with the
+active training launches per step, reruns and step times) and, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero, without the last
 line, when there is no CUDA device or any phase fails. The AMOTA and AP it
 prints come from random or barely trained weights.
@@ -245,6 +276,14 @@ MEMO_TIME_ANNS = 100
 # range (1.0 gives nearly constant scores; 2.0 saturates the sigmoid
 # before the classifier's last layer is rescaled)
 RESPONSIVE_GAIN = 1.75
+# 3f's and 3j's: the bench.py workload's windows (40 tracks, kNN 40) pass
+# each node's sensor features to more edges, whose averages dilute them:
+# at 1.75 zeroed lidar features move the averages by less than RTOL, ATOL
+# (on the card, and by at most 2.9e-4 in a CPU probe at kNN 10-20); at 3.0
+# by up to ~6e-3 (the same probe at kNN 40)
+DENSE_RESPONSIVE_GAIN = 3.0
+# the encoders a GNN holds (frozen in training), kept by responsive_model
+FROZEN_NAMES = ("resnet", "pointnet", "radarnet")
 # gradients: the JAX package's own gradient tolerance (f32 sums over up to
 # 32k edges in another order); atol is relative to max|plain| per tensor.
 # A ReLU whose f32 pre-activation lies within rounding of zero takes
@@ -256,6 +295,29 @@ RESPONSIVE_GAIN = 1.75
 # version's, from a float64 run of the plain version are printed
 GRAD_RTOL, GRAD_ATOL = 5e-3, 2e-4
 MAX_REL_L2 = 1e-2
+# 2b (a): how far from zero a ReLU unit's pre-activation z may lie when the
+# training backward's mask for it differs from the float64 sign, as a share
+# of the unit's scale sum_k |w_k a_k| + |b| (relu_preactivations_from_
+# stashes; a recomputed hidden input's own scale in place of |a_k|). A bound
+# of |z32 - z64| from the kernel's arithmetic, not a fit:
+#  * operand split (tc_gemm.cuh): big = tf32(x) and small = tf32(x - big),
+#    each rounded to nearest, leave |x - big - small| <= 2^-22 |x|; the
+#    three TF32 products drop small*small and those residues: at most
+#    3 * 2^-22 |w a| per product;
+#  * a product of two TF32 values is exact in f32; the f32 sums (mma.sync's
+#    accumulators, the fp32 block_gemm of the classifier and of the node
+#    projections, the epilogue's bias and projection adds) are bounded as if
+#    each of their n addends were added with its own rounding of up to two
+#    units of 2^-23 (tensor cores align addends by truncation): at most
+#    n 2^-22 of the sum of the addends' magnitudes, which is (1 + 2^-9) sum
+#    |w a| with the split parts; n <= 3 x 256 + 4 = 772 (K at most 256:
+#    h2 and c1; three addends per TF32 product);
+#  * so one layer on stashed inputs: TAU_LAYER; a layer on a recomputed
+#    hidden layer adds that layer's error through |w| (ReLU is 1-Lipschitz),
+#    and the deepest chain is three layers (the classifier's a3), hence
+#    3 TAU_LAYER (1 + TAU_LAYER).
+TAU_LAYER = 772 * 2.0 ** -22 * (1 + 2.0 ** -9) + 3 * 2.0 ** -22
+RELU_TAU = 3 * TAU_LAYER * (1 + TAU_LAYER)
 # kNN graphs of two runs may differ only where the k-th and (k+1)-th
 # neighbour distances lie within this relative gap (f32 summation orders)
 NEAR_TIE = 1e-4
@@ -289,6 +351,17 @@ def cuda_ms(fn, reps, warmup=2):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+# 2b's cases: (model, (N, E), windows, all-padding windows at the end)
+TRAIN_CASES = [
+    ("mm", (64, 512), 8, 0),
+    ("mm", (256, 4096), 8, 0),
+    ("mm", (512, 4096), 2, 0),
+    ("pose", (128, 1024), 8, 0),
+    ("mm", (1024, 32768), 1, 0),
+    ("mm", (64, 512), 2, 1),  # the second window is all padding
+]
 
 
 def random_inputs(rng, windows, n, e, nd, ed, with_att, empty=0):
@@ -498,6 +571,235 @@ def compare_grads(got, ref, ref64_fn, what):
         tied.append((k, outside, r.numel(), rel_l2, rms(g), rms(r)))
         assert rel_l2 <= MAX_REL_L2, (what, k, rel_l2)
     return worst, tied
+
+
+def relu_mask_units(masks, pre64):
+    """2b (a): the units where ``masks`` differ from the float64 signs of
+    ``pre64`` (``relu_preactivations_from_stashes``), and of those the ones
+    whose |z64| exceeds RELU_TAU times their scale."""
+    differ = beyond = 0
+    for m, (z, scale) in zip(masks, pre64):
+        d = m != (z > 0)
+        differ += int(d.sum())
+        beyond += int((d & (z.abs() > RELU_TAU * scale)).sum())
+    return differ, beyond
+
+
+def grads_outside(got, ref):
+    """2b (b): every gradient tensor element by element at GRAD_RTOL and
+    GRAD_ATOL x max|ref| of the tensor, no relative-L2 escape. Returns
+    (elements outside, max |got - ref|)."""
+    assert set(got) == set(ref), set(got) ^ set(ref)
+    outside, worst = 0, 0.0
+    for k, r in ref.items():
+        diff = (got[k] - r).abs()
+        worst = max(worst, float(diff.max()))
+        outside += int((diff > GRAD_ATOL * float(r.abs().max()) + GRAD_RTOL * r.abs()).sum())
+    return outside, worst
+
+
+def training_pair_checks(models, rng):
+    """Phase 2b: the training pair (B4-B7) against autograd of the plain
+    version on random inputs, case by case (TRAIN_CASES): the scores and
+    stashes at RTOL, ATOL; the gradients against the plain version's own
+    branches (compare_grads, with its relative-L2 escape: a reading) and
+    against it replaying the float64 masks of the kernel's stashes (a
+    reading); then under the backward kernel's own ReLU masks
+    (``fused_mp_train_masks``): (a) every mask it took that differs from
+    the float64 sign lies within RELU_TAU of zero, (b) every gradient
+    tensor at GRAD_RTOL, GRAD_ATOL x max|ref| element by element, no
+    escape, (c) one unit flipped (the largest |z64| of the middle layer's
+    c1, the combine's first hidden layer, on a node a valid edge touches)
+    is rejected by both, (d) the
+    backward with the mask buffer gives the training path's gradients bit
+    for bit, and a second run of the training path too. Returns the
+    largest forward and gradient errors and the readings."""
+    import torch
+
+    from batch3dmot_tpu_torch.ops.fused_mp import (
+        extract_mp_params,
+        fused_mp_scores_plain,
+        relu_preactivations_from_stashes,
+    )
+    from batch3dmot_tpu_torch.ops.fused_mp_train import (
+        fused_mp_train_masks,
+        fused_mp_train_scores,
+    )
+
+    fwd_err = bwd_err = 0.0
+    rows = []
+    for name, (n, e), windows, empty in TRAIN_CASES:
+        model = models[name]
+        pose = name == "pose"
+        nd, ed = model.node_dim, model.edge_dim
+        inputs = random_inputs(rng, windows, n, e, nd, ed, not pose, empty)
+        ct = torch.from_numpy(rng.uniform(-1.0, 1.0, (windows, e)).astype(np.float32)).cuda()
+        flat, meta = extract_mp_params(model, not pose, nd, ed)
+        scores, stashes, grads_m, kmasks = fused_mp_train_masks(*inputs, flat, meta, 6, ct, pose)
+        with torch.no_grad():
+            ref = fused_mp_scores_plain(*inputs, flat, meta, 6, pose, carries=True)
+        torch.cuda.synchronize()
+        f_err = 0.0
+        for what, a, b in zip(("scores", "x_t", "e_t", "agg_t"), (scores, *stashes), ref):
+            torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL, msg=what)
+            f_err = max(f_err, float((a - b).abs().max()))
+        fwd_err = max(fwd_err, f_err)
+        del ref
+        _, g_k = train_grads(model, inputs, ct, 6, pose, fused_mp_train_scores)
+        _, g_p = train_grads(model, inputs, ct, 6, pose, fused_mp_scores_plain)
+
+        def plain64(model=model, inputs=inputs, ct=ct, pose=pose):
+            m64 = copy.deepcopy(model).double()
+            i64 = [t.double() if t is not None and t.is_floating_point() else t
+                   for t in inputs]
+            return train_grads(m64, i64, ct.double(), 6, pose, fused_mp_scores_plain)[1]
+
+        # the plain version's own branches (a reading: ReLU ties)
+        err, tied = compare_grads(g_k, g_p, plain64, f"{name} ({n},{e}) x{windows}")
+        bwd_err = max(bwd_err, err)
+        d64 = lambda t: None if t is None else t.double()  # noqa: E731
+        pre64 = relu_preactivations_from_stashes(
+            [t.double() for t in stashes], d64(inputs[2]), *inputs[3:],
+            [w.double() for w in flat], meta, 6)
+        masks64 = [z > 0 for z, _ in pre64]
+        masks32 = [z > 0 for z, _ in relu_preactivations_from_stashes(
+            stashes, inputs[2], *inputs[3:], flat, meta, 6)]
+        near = sum(int((a != b).sum()) for a, b in zip(masks64, masks32))
+        del masks32
+        # the float64 masks of the kernel's stashes replayed (a reading)
+        _, g_64 = train_grads(model, inputs, ct, 6, pose, functools.partial(
+            fused_mp_scores_plain, relu_masks=masks64))
+        out64, err64 = grads_outside(g_k, g_64)
+        l2_64 = max(float((g_k[k] - r).double().norm() / r.double().norm())
+                    for k, r in g_64.items())
+        assert l2_64 <= MAX_REL_L2, (name, n, e, l2_64)
+        del g_64, masks64
+        # (a) the kernel's masks against float64
+        differ, beyond = relu_mask_units(kmasks, pre64)
+        assert beyond == 0, (name, n, e, "a kernel mask beyond RELU_TAU of zero", differ, beyond)
+        # (b) the gradients under the kernel's own masks, no escape
+        _, g_r = train_grads(model, inputs, ct, 6, pose, functools.partial(
+            fused_mp_scores_plain, relu_masks=kmasks))
+        out_r, err_r = grads_outside(g_k, g_r)
+        assert out_r == 0, (name, n, e, "elements outside under the kernel's masks", out_r)
+        del g_r
+        # (c) one unit flipped: the largest |z64| of the middle layer's c1 (the
+        # combine's first hidden layer at depth 3; a node's units reach
+        # every edge it touches in the later layers) on a node a valid edge
+        # touches
+        li = 6 * 3 + 4
+        src, dst, valid = inputs[3:]
+        touched = torch.zeros(windows, n, dtype=torch.bool, device=valid.device)
+        rows_b = torch.arange(windows, device=valid.device)[:, None].expand_as(valid)
+        touched[rows_b[valid], src.long()[valid]] = True
+        touched[rows_b[valid], dst.long()[valid]] = True
+        z = pre64[li][0].abs() * touched[..., None]
+        at = np.unravel_index(int(z.argmax()), tuple(z.shape))
+        flipped = list(kmasks)
+        flipped[li] = kmasks[li].clone()
+        flipped[li][at] = ~flipped[li][at]
+        c_differ, c_beyond = relu_mask_units(flipped, pre64)
+        assert c_beyond > 0, (name, n, e, "check (a) accepts the flipped unit")
+        _, g_f = train_grads(model, inputs, ct, 6, pose, functools.partial(
+            fused_mp_scores_plain, relu_masks=flipped))
+        c_out, c_err = grads_outside(g_k, g_f)
+        assert c_out > 0, (name, n, e, "check (b) accepts the flipped unit")
+        del g_f, flipped, z, touched
+        # (d) the mask buffer changes nothing: its gradients are the training
+        # path's, and the training path's twice
+        leaves = [None if t is None else t.detach().clone().requires_grad_()
+                  for t in inputs[:3]]
+        flat_l = [w.clone().requires_grad_() for w in flat]
+        wanted = [t for t in (*leaves, *flat_l) if t is not None]
+        g_train = torch.autograd.grad(
+            fused_mp_train_scores(*leaves, *inputs[3:], flat_l, meta, 6, pose), wanted, ct)
+        g_mask = [g for g in grads_m if g is not None]
+        assert len(g_mask) == len(g_train) and all(
+            torch.equal(a, b) for a, b in zip(g_mask, g_train)), "the mask buffer moved a gradient"
+        _, again = train_grads(model, inputs, ct, 6, pose, fused_mp_train_scores)
+        torch.cuda.synchronize()
+        for k in g_k:
+            assert torch.equal(g_k[k], again[k]), f"{k}: two backward runs differ"
+        units = sum(m.numel() for m in kmasks)
+        rows.append(dict(case=f"{name} ({n},{e}) x{windows}", units=units, differ=differ,
+                         f32_f64_differ=near, outside=out_r, err=err_r,
+                         control=dict(at=[int(i) for i in at], z64=float(pre64[li][0][at]),
+                                      scale=float(pre64[li][1][at]), differ=c_differ,
+                                      beyond=c_beyond, outside=c_out, err=c_err),
+                         tied_tensors=len(tied), f64_masks_outside=out64,
+                         f64_masks_rel_l2=l2_64))
+        log(f"kernel fused_mp_train {name} ({n},{e}) x{windows} empty={empty}: "
+            f"max|kernel-plain| scores and stashes {f_err:.3e}, gradients {err:.3e} "
+            f"over {len(g_k)} tensors ({len(tied)} held to the relative L2 bound); "
+            f"float64 masks of the kernel's stashes ({near} units where a float32 recompute "
+            f"differs) replayed: {out64} elements outside, max {err64:.3e} (relative L2 "
+            f"{l2_64:.2e}, held to {MAX_REL_L2:g}); the backward's "
+            f"own masks: (a) {differ} of {units} units differ from float64, none beyond "
+            f"RELU_TAU {RELU_TAU:.3e} x scale; (b) replayed, {out_r} elements outside rtol "
+            f"{GRAD_RTOL:g}, atol {GRAD_ATOL:g} x max|plain|, max {err_r:.3e}; (c) control "
+            f"(c1 of layer 3 at {tuple(int(i) for i in at)}, z64 "
+            f"{float(pre64[li][0][at]):.3e}, scale {float(pre64[li][1][at]):.3e}) "
+            f"rejected: {c_beyond} unit beyond RELU_TAU, {c_out} elements outside (max "
+            f"{c_err:.3e}); (d) gradients with the mask buffer bit-identical to the training "
+            f"path's; backward bit-identical across two runs")
+        for k, outside, size, rel_l2, rk, rp in tied:
+            log(f"  {k}: {outside}/{size} elements outside the gradient tolerance against "
+                f"the plain version's own branches, relative L2 error {rel_l2:.2e}; RMS from "
+                f"a float64 plain run: kernel {rk:.3e}, f32 plain {rp:.3e}")
+        model.zero_grad(set_to_none=True)
+        del inputs, scores, stashes, grads_m, kmasks, pre64, g_k, g_p, again, g_train
+    log("2b under the backward kernel's own ReLU masks (case: units differing from "
+        "float64, elements outside): " + "; ".join(
+            f"{r['case']}: {r['differ']}, {r['outside']}" for r in rows))
+    return fwd_err, bwd_err, rows
+
+
+def active_step_launches(depth, mm):
+    """The segment-sum kernel's launches in one knn_conv_mode='active'
+    training step: the forward's segment sums (2 per layer, 2 per kNN
+    GATConv, which runs before layers 0, 2, 4, ...) and the backward's, one
+    per ``gather_rows`` (per layer ``[x | initial_x]``; per GATConv both
+    scores, the messages, the softmax's max and denominator; mm's two
+    attention rows)."""
+    convs = (depth + 1) // 2
+    return 2 * depth + 2 * convs + depth + 4 * convs + (2 if mm else 0)
+
+
+@contextlib.contextmanager
+def atomic_gathers():
+    """The models' gathers as before their backward became a segment sum:
+    ``gather_rows`` replaced by a plain ``torch.gather`` (the same forward;
+    its backward scatter-adds with atomics). For readings only."""
+    from batch3dmot_tpu_torch.models import gnn, layers
+    from batch3dmot_tpu_torch.ops import segment
+    from batch3dmot_tpu_torch.ops.segment_kernel import gather_segments
+
+    saved = [(m, m.gather_rows) for m in (gnn, layers, segment)]
+    for m, _ in saved:
+        m.gather_rows = gather_segments
+    try:
+        yield
+    finally:
+        for m, fn in saved:
+            m.gather_rows = fn
+
+
+def trainer_state(tr):
+    """A trainer's parameters and Adam moments, by name, copied."""
+    names = {id(p): k for k, p in tr.model.named_parameters()}
+    out = {f"param {k}": p.detach().clone() for k, p in tr.model.named_parameters()}
+    for p, st in tr.optimizer.state.items():
+        for key in ("exp_avg", "exp_avg_sq"):
+            out[f"{key} {names[id(p)]}"] = st[key].clone()
+    return out
+
+
+def state_diff(a, b):
+    """(tensors that differ, the largest |difference|) of two trainer_states."""
+    assert a.keys() == b.keys()
+    differ = [k for k in a if not a[k].equal(b[k])]
+    worst = max((float((a[k] - b[k]).abs().max()) for k in differ), default=0.0)
+    return differ, worst
 
 
 def plain_scorer(model):
@@ -1566,14 +1868,20 @@ def data_parallel(card, pairs, start_sd, clr_cfg, dense_ds, dedup_ds):
         check = json.loads(Path(out_dir, "check.json").read_text())
     for r, launches in enumerate(check["counters"]):
         assert all(v > 0 for v in launches.values()), (r, launches)
+    # the active mm step of the dry run (depth 2)
+    want_active = active_step_launches(2, True)
+    assert check["active_step_launches"] == [want_active] * 2, (check["active_step_launches"],
+                                                                want_active)
     log(f"3i (b) dryrun 2 --device cuda (gloo, both ranks on {card}) in {dryrun_s:.1f} s, "
         f"its one-process comparison included: every kernel launched on each rank "
-        f"{check['counters']}; ranks bit-identical; vs one process (at rtol {RTOL:.0e}, atol "
+        f"{check['counters']} (the active step's segment sums {check['active_step_launches']}, "
+        f"{want_active} expected); ranks bit-identical; vs one process (at rtol {RTOL:.0e}, atol "
         f"{ATOL:.0e}) max |trained state diff| {check['param']:.2e}, one-step gradients "
         f"{check['grad']:.2e}, averaged edges {check['pipeline']:.2e}, cached-embedding scores "
         f"{check['cached']:.2e}; phase 3i and 4g {time.perf_counter() - t_phase:.1f} s")
     return dict(one_rank=dict(runs=runs, launches=path_launches, mesh_free=free_launches),
-                timing=timing, ranks=check["counters"], dryrun_s=dryrun_s)
+                timing=timing, ranks=check["counters"], dryrun_s=dryrun_s,
+                active_step_launches=check["active_step_launches"])
 
 
 # ---- the CLI (phase 3j, timing 4h) ---------------------------------------------
@@ -1680,7 +1988,7 @@ def cli_phase(card):
         _encoder_digest,
     )
     from batch3dmot_tpu_torch.train.trainer import WARMUP_STEPS, GNNTrainer
-    from batch3dmot_tpu_torch.utils.checkpoint import load_checkpoint
+    from batch3dmot_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 
     t_phase = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="b3d_cli_")
@@ -1836,6 +2144,64 @@ def cli_phase(card):
             assert res_api.amota == res_cli.amota, (res_api.amota, res_cli.amota)
         assert np.isfinite(res_cli.amota)
 
+        # (e) (b)-(d) again on a model whose scores move with the embeddings:
+        # responsive_model of the checkpoint, written as a port checkpoint,
+        # through predict encoded (raw encode) and device, held to the API
+        # on the same model; a lidar-zeroed control through the API outside
+        resp = responsive_model(model, scene_list, [ws for _, ws in items],
+                                gain=DENSE_RESPONSIVE_GAIN)
+        ck_r = save_checkpoint(os.path.join(tmp, "responsive", "gnn_responsive.pt"),
+                               {k: v.detach().cpu() for k, v in resp.state_dict().items()})
+        run("predict encoded responsive", [
+            "predict", "--pipeline", "encoded", "--checkpoint", ck_r,
+            "--set", f"paths.eval={tmp}/eval_resp", "--set", "predict.embedding_cache=off",
+            *f32])
+        run("predict device responsive", [
+            "predict", "--pipeline", "device", "--synthetic", "4", "--checkpoint", ck_r,
+            "--set", f"paths.eval={tmp}/eval_resp_device", "--set",
+            "predict.batch_size_graph=5", *f32])
+        for tag, n in (("predict encoded responsive", -(-n_live // 8)),
+                       ("predict device responsive", dev_launches)):
+            want = dict(fused_mp=n, fwd=0, bwd=0, segment_sum=0)
+            assert launches[tag] == want, (tag, launches[tag], want)
+        raw_r, dev_r = scores_of("resp"), scores_of("resp_device")
+        api_r = predict_scenes(SceneEncodedScorer(resp), items, cfg.predict)
+        resp_err = max(max_avg_diff(raw_r[s.scene_token], a) for (s, _), (_, a) in zip(items, api_r))
+        cli_r = [(greedy_round(threshold_edges(raw_r[s.scene_token], s, thresholds)),
+                  raw_r[s.scene_token]) for s, _ in items]
+        resp_flips, resp_unexplained = rounding_flips(api_r, cli_r, scene_list)
+        assert resp_unexplained == 0, resp_unexplained
+        sub_r = submission_of("resp")
+        api_sub_r = cli_submission(scene_list, api_r, cfg)
+        amota_r = [evaluate_tracking(gt_boxes, [b for v in sb["results"].values() for b in v],
+                                     list(sb["results"].keys())).amota
+                   for sb in (sub_r, api_sub_r)]
+        if resp_flips == 0:
+            assert api_sub_r == sub_r
+            assert amota_r[0] == amota_r[1], amota_r
+        dev_err_r = max((max_avg_diff(dev_r[s.scene_token], raw_r[s.scene_token]) for s in same),
+                        default=0.0)
+        dev_preds_r = [(greedy_round(threshold_edges(dev_r[s.scene_token], s, thresholds)),
+                        dev_r[s.scene_token]) for s in same]
+        dev_flips_r, dev_unexplained_r = rounding_flips(
+            dev_preds_r, [p for p, (s, _) in zip(cli_r, items) if s in same], same)
+        assert dev_unexplained_r == 0, dev_unexplained_r
+        ctrl = predict_scenes(zeroed_scorer(resp, 1), items, cfg.predict)
+        ctrl_out = sum(outside_avg(a, raw_r[s.scene_token]) for (s, _), (_, a) in zip(items, ctrl))
+        assert ctrl_out > 0, "lidar-zeroed features stay within RTOL, ATOL"
+        resp_quant = score_quantiles([v for a in raw_r.values() for v in a.values()])
+        responsive_run = dict(scores=resp_quant, api_err=resp_err, near_tie_edges=resp_flips,
+                              amota=amota_r, dev_err=dev_err_r, dev_near_tie_edges=dev_flips_r,
+                              lidar_control_outside=ctrl_out)
+        log(f"3j (e) the responsive model (averaged scores {resp_quant} at the 0/10/50/90/100% "
+            f"quantiles): predict --pipeline encoded vs predict_scenes max|avg diff| "
+            f"{resp_err:.3e}, predicted edges at a near-tie {resp_flips}, submission "
+            f"{'equal' if resp_flips == 0 else 'differs at those'}, AMOTA {amota_r[0]!r} vs "
+            f"{amota_r[1]!r}; --pipeline device vs encoded {dev_err_r:.3e} over {len(same)} "
+            f"scenes, {dev_flips_r} near-tie edges; lidar features zeroed: {ctrl_out} averaged "
+            f"edges outside RTOL, ATOL")
+        del resp
+
         # 5. train-gnn pose, host batches from the stores, 4 steps per
         # group: one staging source (every batch has one shape), whose
         # warm-up steps and capture run the training pair; validation runs
@@ -1923,7 +2289,7 @@ def cli_phase(card):
                 total[k] += v
         return dict(launches=total, per_call={k: v for k, v in launches.items()
                                               if "timing" not in k},
-                    timing=timing, api_err=api_err, dev_err=dev_err)
+                    timing=timing, api_err=api_err, dev_err=dev_err, responsive=responsive_run)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2372,14 +2738,15 @@ def time_sample_memo(tables, cfg, splits_json, pre, tmp, count=MEMO_TIME_ANNS):
     return out
 
 
-def responsive_model(model, scene, windows, gain=RESPONSIVE_GAIN, seed=11):
+def responsive_model(model, scenes, windows_list, gain=RESPONSIVE_GAIN, seed=11):
     """A copy of ``model`` whose scores move with the embeddings: its GNN
     weights drawn from ``seed`` at ``gain`` times ``init_params_``'s range
     (whose own draw, like a briefly trained model, gives nearly constant
     scores: the sensor features fade through the attention encoder's five
-    layers), its grafted encoders kept, and the edge classifier's last
-    layer set so that the logits over ``scene``'s windows (the module
-    loop's) have mean 0 and standard deviation 2."""
+    layers), its encoders kept, and the edge classifier's last layer set so
+    that the logits over ``scenes``' windows (the module loop's) have mean
+    0 and standard deviation 2. 3f, 3j and 3k hold their comparisons on
+    it."""
     import torch
 
     from batch3dmot_tpu_torch.models import init_params_
@@ -2389,18 +2756,19 @@ def responsive_model(model, scene, windows, gain=RESPONSIVE_GAIN, seed=11):
     init_params_(out, torch.Generator().manual_seed(seed))
     with torch.no_grad():
         for name, p in out.named_parameters():
-            if p.dim() >= 2 and not name.startswith(("resnet", "pointnet", "radarnet")):
+            if p.dim() >= 2 and not name.startswith(FROZEN_NAMES):
                 p.mul_(gain)
-    for name in ("pointnet", "radarnet"):
-        getattr(out, name).load_state_dict(getattr(model, name).state_dict())
+    for name in FROZEN_NAMES:
+        if hasattr(model, name):
+            getattr(out, name).load_state_dict(getattr(model, name).state_dict())
     out = out.cuda().eval()
-    enc = precompute_scene_encodings(out, scene)
+    pairs = [(w, precompute_scene_encodings(out, scene))
+             for scene, windows in zip(scenes, windows_list) for w in windows]
     last, logits = out.edge_classifier[-1], []
     hook = last.register_forward_hook(lambda mod, args, z: logits.append(z))
     try:
         with torch.no_grad():
-            for graph, encs in EncodedGraphBatcher([(w, enc) for w in windows],
-                                                   8).epoch(shuffle=False):
+            for graph, encs in EncodedGraphBatcher(pairs, 8).epoch(shuffle=False):
                 graph = graph.to("cuda")
                 out.forward_from_encodings(graph, *(t.cuda() for t in encs))
                 logits[-1] = logits[-1].reshape(graph.edge_mask.shape)[graph.edge_mask]
@@ -2412,6 +2780,30 @@ def responsive_model(model, scene, windows, gain=RESPONSIVE_GAIN, seed=11):
         last.weight.mul_(2.0 / std)
         last.bias.sub_(mean).mul_(2.0 / std)
     return out
+
+
+def zeroed_scorer(model, slot):
+    """A SceneEncodedScorer of ``model`` with one sensor's features zeroed,
+    the controls of 3f, 3j and 3k (slot 0: camera, 1: lidar, 2: radar)."""
+    from batch3dmot_tpu_torch.infer.predict import SceneEncodedScorer
+
+    class Zeroed(SceneEncodedScorer):
+        def _encode(self, *args):
+            enc = list(super()._encode(*args))
+            enc[slot] = enc[slot].new_zeros(enc[slot].shape)
+            return tuple(enc)
+
+    return Zeroed(model)
+
+
+def score_quantiles(values):
+    """The 0, 10, 50, 90 and 100% quantiles of scores, to show their spread."""
+    return [float(x) for x in np.quantile(np.asarray(values), (0.0, 0.1, 0.5, 0.9, 1.0))]
+
+
+def outside_avg(got, want):
+    """Averaged edges of ``want`` whose ``got`` lies outside RTOL, ATOL."""
+    return sum(abs(got[k] - v) > RTOL * abs(v) + ATOL for k, v in want.items())
 
 
 def nuscenes_model_checks(cfg, model, scene, windows, full, train_store, enc_avg):
@@ -2455,19 +2847,7 @@ def nuscenes_model_checks(cfg, model, scene, windows, full, train_store, enc_avg
         a, b = getattr(full, name), getattr(scene, name)
         assert a.shape == b.shape and np.array_equal(a, b), name
     model = model.cuda().eval()
-    responsive = responsive_model(model, scene, windows)
-
-    class Zeroed(SceneEncodedScorer):
-        """The controls: one sensor's features zeroed (slot 1: lidar, 2: radar)."""
-
-        def __init__(self, m, slot):
-            super().__init__(m)
-            self.slot = slot
-
-        def _encode(self, *args):
-            enc = list(super()._encode(*args))
-            enc[self.slot] = torch.zeros_like(enc[self.slot])
-            return tuple(enc)
+    responsive = responsive_model(model, [scene], [windows])
 
     def outside(a, b):
         return int((np.abs(a - b) > RTOL * np.abs(b) + ATOL).sum())
@@ -2481,10 +2861,9 @@ def nuscenes_model_checks(cfg, model, scene, windows, full, train_store, enc_avg
             np.testing.assert_allclose(a, b, rtol=RTOL, atol=ATOL)
         flat = np.concatenate(k)
         r = dict(plain_err=max(float(np.abs(a - b).max()) for a, b in zip(k, p) if a.size),
-                 scores=[float(x) for x in np.quantile(flat, (0.0, 0.1, 0.5, 0.9, 1.0))],
-                 edges=int(flat.size))
+                 scores=score_quantiles(flat), edges=int(flat.size))
         for slot, sensor in ((1, "lidar"), (2, "radar")):
-            c = Zeroed(m, slot).score_scene(scene, windows)
+            c = zeroed_scorer(m, slot).score_scene(scene, windows)
             r[f"{sensor}_control_err"] = max(float(np.abs(a - b).max())
                                              for a, b in zip(k, c) if a.size)
             r[f"{sensor}_control_outside"] = sum(outside(b, a) for a, b in zip(k, c))
@@ -3019,7 +3398,6 @@ def main() -> int:
         fused_mp_scores_cuda,
         fused_mp_scores_plain,
         pack_mp_weights,
-        relu_masks_from_stashes,
     )
     from batch3dmot_tpu_torch.ops.fused_mp_train import (
         fused_mp_train_scores,
@@ -3128,87 +3506,7 @@ def main() -> int:
                     f"({flops / 1e9:.2f} GFLOP; operations)")
 
     # ---- 2b. the training pair against autograd of the plain version ----
-    train_cases = [
-        ("mm", (64, 512), 8, 0),
-        ("mm", (256, 4096), 8, 0),
-        ("mm", (512, 4096), 2, 0),
-        ("pose", (128, 1024), 8, 0),
-        ("mm", (1024, 32768), 1, 0),
-        ("mm", (64, 512), 2, 1),  # the second window is all padding
-    ]
-    fwd_err = bwd_err = replay_worst = 0.0
-    replay_rows = []
-    for name, (n, e), windows, empty in train_cases:
-        model = models[name]
-        pose = name == "pose"
-        nd, ed = model.node_dim, model.edge_dim
-        inputs = random_inputs(rng, windows, n, e, nd, ed, not pose, empty)
-        ct = torch.from_numpy(rng.uniform(-1.0, 1.0, (windows, e)).astype(np.float32)).cuda()
-        flat, meta = extract_mp_params(model, not pose, nd, ed)
-        with torch.no_grad():
-            got = train_forward_cuda(*inputs, flat, meta, 6, pose)[:4]
-            ref = fused_mp_scores_plain(*inputs, flat, meta, 6, pose, carries=True)
-        torch.cuda.synchronize()
-        f_err = 0.0
-        for what, a, b in zip(("scores", "x_t", "e_t", "agg_t"), got, ref):
-            torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL, msg=what)
-            f_err = max(f_err, float((a - b).abs().max()))
-        fwd_err = max(fwd_err, f_err)
-        _, g_k = train_grads(model, inputs, ct, 6, pose, fused_mp_train_scores)
-        _, g_p = train_grads(model, inputs, ct, 6, pose, fused_mp_scores_plain)
-
-        def plain64(model=model, inputs=inputs, ct=ct, pose=pose):
-            m64 = copy.deepcopy(model).double()
-            i64 = [t.double() if t is not None and t.is_floating_point() else t
-                   for t in inputs]
-            return train_grads(m64, i64, ct.double(), 6, pose, fused_mp_scores_plain)[1]
-
-        err, tied = compare_grads(g_k, g_p, plain64, f"{name} ({n},{e}) x{windows}")
-        bwd_err = max(bwd_err, err)
-        # the plain version again, its ReLUs replaying the masks recomputed
-        # in float64 from the kernel's own stashes (x_t, e_t, agg_t), held
-        # to the same bounds as above and printed beside them; near: the
-        # units where a float32 recompute from the same stashes differs
-        d64 = lambda t: None if t is None else t.double()  # noqa: E731
-        masks = relu_masks_from_stashes([t.double() for t in got[1:]], d64(inputs[2]),
-                                        *inputs[3:], [w.double() for w in flat], meta, 6)
-        masks32 = relu_masks_from_stashes(got[1:], inputs[2], *inputs[3:], flat, meta, 6)
-        near = sum(int((a != b).sum()) for a, b in zip(masks, masks32))
-        del masks32
-        _, g_r = train_grads(model, inputs, ct, 6, pose, functools.partial(
-            fused_mp_scores_plain, relu_masks=masks))
-        replay_err, replay_outside, replay_l2 = 0.0, 0, 0.0
-        for k, r in g_r.items():
-            diff = (g_k[k] - r).abs()
-            replay_err = max(replay_err, float(diff.max()))
-            replay_outside += int((diff > GRAD_ATOL * float(r.abs().max())
-                                   + GRAD_RTOL * r.abs()).sum())
-            replay_l2 = max(replay_l2, float(diff.double().norm() / r.double().norm()))
-        assert replay_l2 <= MAX_REL_L2, (name, n, e, replay_l2)
-        replay_worst = max(replay_worst, replay_err)
-        replay_rows.append((name, n, e, windows, near, replay_outside, replay_l2))
-        _, again = train_grads(model, inputs, ct, 6, pose, fused_mp_train_scores)
-        torch.cuda.synchronize()
-        for k in g_k:
-            assert torch.equal(g_k[k], again[k]), f"{k}: two backward runs differ"
-        log(f"kernel fused_mp_train {name} ({n},{e}) x{windows} empty={empty}: "
-            f"max|kernel-plain| scores and stashes {f_err:.3e}, gradients {err:.3e} "
-            f"over {len(g_k)} tensors ({len(tied)} held to the relative L2 bound); under "
-            f"the replayed ReLU masks (float64 from the kernel's stashes; {near} units "
-            f"where the float32 recompute differs) {replay_err:.3e}, {replay_outside} "
-            f"elements outside rtol {GRAD_RTOL:g}, atol {GRAD_ATOL:g} x max|plain| "
-            f"(relative L2 {replay_l2:.2e}, held to {MAX_REL_L2:g}); backward "
-            f"bit-identical across two runs")
-        for k, outside, size, rel_l2, rk, rp in tied:
-            log(f"  {k}: {outside}/{size} elements outside the gradient tolerance, "
-                f"relative L2 error {rel_l2:.2e}; RMS from a float64 plain run: "
-                f"kernel {rk:.3e}, f32 plain {rp:.3e}")
-        model.zero_grad(set_to_none=True)
-        del inputs, got, ref, g_k, g_p, g_r, masks, again
-
-    log("2b under replayed ReLU masks (case, units a float32 recompute flips, elements "
-        f"outside the gradient tolerance, relative L2): {replay_rows}; max|kernel-plain| "
-        f"{replay_worst:.3e}")
+    fwd_err, bwd_err, relu_readings = training_pair_checks(models, rng)
 
     # ---- 2c. the segment-sum kernel against its plain version ------------
     # the active path's shapes: mm message passing (D 128), its GAT messages
@@ -3532,19 +3830,22 @@ def main() -> int:
     # ---- 3d. active training ------------------------------------------------
     # GNNTrainer steps through the module loop under autograd: mm from the
     # precomputed encodings ((256, 4096) x2) and pose from window batches
-    # ((128, 1024) x2); the segment sum's backward is a gather
+    # ((128, 1024) x2); the segment sum's backward is a gather, every
+    # gather's (gather_rows) a segment sum, so two runs of the same steps
+    # are bit-identical (the torch.gather formulation's spread is printed)
     active_sd = {k: v.clone() for k, v in active_mm.state_dict().items()}
     pose_sd = {k: v.clone() for k, v in active_pose.state_dict().items()}
     encs_a = [precompute_scene_encodings(active_mm, sc) for sc in scenes]
     pairs_a = [(w, enc) for ws, enc in zip(windows_list, encs_a) for w in ws]
     small = [w for w in all_windows if pick_bucket(w.num_nodes, w.num_edges) == (128, 1024)]
     pose_b = GraphBatcher(small, 2, buckets=((128, 1024),), seed=0)
-    active_train = {}
+    active_train, repro = {}, {}
     for name, sd, batcher in (
         ("mm", active_sd, EncodedGraphBatcher(pairs_a, 2, seed=0, uniform=True)),
         ("pose", pose_sd, pose_b),
     ):
-        batches = list(batcher.epoch())[:4]
+        # 4 steps (pose's bucket has 3 batches: its first comes again)
+        batches = list(itertools.islice(itertools.cycle(list(batcher.epoch())), 4))
         tr = GNNTrainer(make_model(name, knn_conv_mode="active"), GNNConfig(**clr),
                         init_state_dict=sd)
         frozen_a = {k: v.clone() for k, v in tr.model.state_dict().items()
@@ -3553,11 +3854,31 @@ def main() -> int:
         losses = [float(tr.train_step(b)[0]) for b in batches]
         torch.cuda.synchronize()
         steps_launches = segment_sum.launches
-        # 18 forward segment sums; the mm's backward adds two, the
-        # attention rows' gathers (models/layers.py::gather_rows)
-        per_step = 18 + (2 if name == "mm" else 0)
-        assert steps_launches == per_step * len(batches), (name, steps_launches)
+        per_step = active_step_launches(6, name == "mm")
+        assert steps_launches == per_step * len(batches), (name, steps_launches, per_step)
         assert np.isfinite(losses).all(), losses
+        # the same 4 steps again from the same state: bit-identical
+        # parameters and Adam moments; then twice through torch.gather
+        # (a reading)
+        tr2 = GNNTrainer(make_model(name, knn_conv_mode="active"), GNNConfig(**clr),
+                         init_state_dict=sd)
+        for b in batches:
+            tr2.train_step(b)
+        differ, _ = state_diff(trainer_state(tr), trainer_state(tr2))
+        assert not differ, (name, "two runs of the same active steps differ", differ[:5])
+        with atomic_gathers():
+            old = []
+            for _ in range(2):
+                t_old = GNNTrainer(make_model(name, knn_conv_mode="active"), GNNConfig(**clr),
+                                   init_state_dict=sd)
+                for b in batches:
+                    t_old.train_step(b)
+                old.append(trainer_state(t_old))
+        old_differ, old_diff = state_diff(*old)
+        repro[name] = dict(steps=len(batches), launches=steps_launches, per_step=per_step,
+                           torch_gather_tensors_differ=len(old_differ),
+                           torch_gather_max_diff=old_diff)
+        del tr2, t_old, old
         state = tr.model.state_dict()
         for k, v in frozen_a.items():
             assert torch.equal(state[k], v), f"frozen {k} moved"
@@ -3574,7 +3895,10 @@ def main() -> int:
                       else batch.edge_src.shape)
         active_train[name] = (tk, batch)
         log(f"active training {name}: {len(batches)} steps of {shape}, segment_sum "
-            f"launches {steps_launches}, losses {[f'{v:.6f}' for v in losses]}"
+            f"launches {steps_launches} ({per_step} per step), losses "
+            f"{[f'{v:.6f}' for v in losses]}; a second run of the steps bit-identical "
+            f"(parameters and Adam moments); two runs through torch.gather: "
+            f"{len(old_differ)} tensors differ, max {old_diff:.3e}"
             + ("; frozen encoders unchanged" if frozen_a else "")
             + f"; one batch: kernel losses {[f'{v:.6f}' for v in lk]}, plain "
             f"{[f'{v:.6f}' for v in lp]}; after 10 more steps {more[-1]:.6f}")
@@ -3741,22 +4065,56 @@ def main() -> int:
     del t_pose, t_cal
 
     # the active mm: the module loop with the kNN GATConv, 18 segment sums
-    # per forward and 2 in the backward (the attention rows' gathers), through fit_device on 8 windows of the active encodings,
-    # against eager train_steps on the same rows
+    # per forward and 20 in the backward (active_step_launches), through
+    # fit_device on 8 windows of the active encodings, against eager
+    # train_steps on the same rows; a second epoch from the same start
+    # bit-identical; an epoch under use_deterministic_algorithms(warn_only)
+    # must have no op that torch flags
     act_ds = materialize_encoded_dataset(pairs_a[:8])
     act_batches = epoch_batches(act_ds, 2, 7)
     t_act, h_act, act_dev_losses = resident("mm", active_sd, act_ds, mode="active")
     t_ref = GNNTrainer(make_model("mm", knn_conv_mode="active"), clr_cfg,
                        init_state_dict=active_sd)
     act_losses, act_step, c_act = eager_steps(t_ref, act_batches)
-    assert c_act["segment_sum"] == act_step.get("segment_sum_kernel") == 20, (c_act, act_step)
+    act_per_step = active_step_launches(6, True)
+    assert c_act["segment_sum"] == act_step.get("segment_sum_kernel") == act_per_step, (
+        c_act, act_step, act_per_step)
     np.testing.assert_allclose(act_dev_losses, act_losses, rtol=1e-4)
     act_rel = max_rel_diff(act_dev_losses, act_losses)
     act_diff, act_at = max_param_diff(t_act, t_ref)
     assert act_diff <= 2 * lr * len(act_batches), act_diff
+    t_act2, _, act_dev_losses2 = resident("mm", active_sd, act_ds, mode="active")
+    act_state = trainer_state(t_act)
+    differ, _ = state_diff(act_state, trainer_state(t_act2))
+    assert not differ and act_dev_losses2 == act_dev_losses, ("two active fit_device epochs "
+                                                              "differ", differ[:5])
+    with atomic_gathers():
+        t_old = [resident("mm", active_sd, act_ds, mode="active")[0] for _ in range(2)]
+    old_differ, old_diff = state_diff(*(trainer_state(t) for t in t_old))
+    probe = GNNTrainer(make_model("mm", knn_conv_mode="active"), clr_cfg,
+                       init_state_dict=active_sd)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            probe.fit_device(act_ds, epochs=1, verbose=False, seed=7)
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    act_flagged = sorted({str(w.message).split(" does not have a deterministic")[0][:160]
+                          for w in caught if "determinis" in str(w.message)})
+    log(f"fit_device active mm: ops torch flags nondeterministic in an epoch: {act_flagged}")
+    assert not act_flagged, act_flagged
+    repro["fit_device"] = dict(steps=len(act_batches), per_step=act_per_step, flagged=act_flagged,
+                               torch_gather_tensors_differ=len(old_differ),
+                               torch_gather_max_diff=old_diff)
+    del t_act2, t_old, probe
     rep_act = replayed(t_act, lambda: t_act.fit_device(act_ds, epochs=1, verbose=False),
                        len(act_batches), act_step)
-    log(f"fit_device active mm: {len(act_batches)} steps; losses step by step vs eager: max "
+    log(f"fit_device active mm: {len(act_batches)} steps ({act_per_step} segment sums per "
+        f"step); a second epoch from the same start bit-identical (parameters, Adam moments, "
+        f"losses); two epochs through torch.gather: {len(old_differ)} tensors differ, max "
+        f"{old_diff:.3e}; losses step by step vs eager: max "
         f"rel diff {act_rel:.2e} (epoch "
         f"{h_act['train/loss']:.6f}); max |param diff| {act_diff:.2e} ({act_at}); an "
         f"epoch of {len(act_batches)} replays, no wrapper launch: {rep_act}")
@@ -3862,6 +4220,95 @@ def main() -> int:
         f"group of {len(scenes)}); {n_tracks_dev} tracks, {len(boxes_dev)} boxes; AMOTA "
         f"{res_dev.amota:.4f} (phase 3's score_scenes: {res.amota:.4f}; untrained random "
         "weights)")
+
+    # the same checks on a model whose scores move with the embeddings
+    # (responsive_model; the seeded phase-3 model's scores barely do), with
+    # float32 point uploads as the scorer's: the pipeline's averages against
+    # the encoded scorer on the same graphs and against the kernel's plain
+    # version, grouped against per scene, its predicted edges against the
+    # encoded path's; camera- and lidar-zeroed controls must put averaged
+    # edges outside RTOL, ATOL; the radar features (which move these scores
+    # less) are held at the encoding level, a zeroed control outside
+    resp = responsive_model(model, scenes, windows_list, gain=DENSE_RESPONSIVE_GAIN)
+    pipe_r = DeviceScenePipeline(resp, 5, 40, point_dtype="float32")
+    pipe_r.score_scene(scenes[0])  # warm-up
+    kept, encode = [], resp.encode_frozen
+
+    def keep(img, lidar, radar):
+        enc = encode(img, lidar, radar)
+        kept.append((lidar, radar, *enc))
+        return enc
+
+    resp.encode_frozen = keep
+    try:
+        r_singles = [pipe_r.score_scene(sc) for sc in scenes]
+    finally:
+        del resp.encode_frozen
+    assert len(kept) == len(scenes), len(kept)
+
+    class RecordingEncoder(SceneEncodedScorer):
+        """The encoded scorer, keeping each scene's encodings."""
+
+        kept = None
+
+        def _encode(self, *args):
+            enc = super()._encode(*args)
+            self.kept.append(enc)
+            return enc
+
+    rec = RecordingEncoder(resp)
+    rec.kept = []
+    r_host = [average_scene_edges(ws, rec.score_scene(sc, ws))
+              for sc, ws in zip(scenes, dev_windows)]
+    r_host_err = max(max_avg_diff(a, h) for a, h in zip(r_singles, r_host))
+    fused_mp.fused_mp_scores_cuda = fused_mp_scores_plain
+    try:
+        r_plain = [pipe_r.score_scene(sc) for sc in scenes]
+    finally:
+        fused_mp.fused_mp_scores_cuda = fused_mp_scores_cuda
+    r_plain_err = max(max_avg_diff(a, b) for a, b in zip(r_singles, r_plain))
+    with grouping_forced():
+        r_grouped = pipe_r.score_scenes(scenes)
+    r_group_err = max(max_avg_diff(g, a) for g, a in zip(r_grouped, r_singles))
+    r_ctrl = {}
+    for slot, sensor in ((0, "camera"), (1, "lidar"), (2, "radar")):
+        zeroed = zeroed_scorer(resp, slot)
+        r_ctrl[sensor] = sum(outside_avg(average_scene_edges(ws, zeroed.score_scene(sc, ws)), a)
+                             for sc, ws, a in zip(scenes, dev_windows, r_singles))
+    log(f"device pipeline on the responsive model: averaged edges outside RTOL, ATOL with "
+        f"one sensor's features zeroed: {r_ctrl}")
+    assert r_ctrl["camera"] > 0 and r_ctrl["lidar"] > 0, (r_ctrl, "zeroed features stay "
+                                                          "within RTOL, ATOL")
+    r_enc_err, r_radar_ctrl = 0.0, 0
+    for sc, (lidar, radar, x_img, pn, rn), want in zip(scenes, kept, rec.kept):
+        m_det = sc.num_detections
+        assert torch.equal(lidar[:m_det].sum(dim=(1, 2)) != 0, want[3][:m_det])
+        assert torch.equal(radar[:m_det].sum(dim=(1, 2)) != 0, want[4][:m_det])
+        for got, ref in ((x_img, want[0]), (pn, want[1]), (rn, want[2])):
+            torch.testing.assert_close(got[:m_det], ref[:m_det], rtol=RTOL, atol=ATOL)
+            r_enc_err = max(r_enc_err, float((got[:m_det] - ref[:m_det]).abs().max()))
+        r_radar_ctrl += int((want[2][:m_det].abs() > RTOL * want[2][:m_det].abs() + ATOL).sum())
+    assert r_radar_ctrl > 0, "zeroed radar encodings stay within RTOL, ATOL"
+    r_preds = predict_scenes(SceneEncodedScorer(resp), items)
+    r_preds_dev = [predict_scene_device(resp, sc, cfg_dev) for sc in scenes]
+    r_flips, r_unexplained = rounding_flips(r_preds_dev, r_preds, scenes)
+    assert r_unexplained == 0, r_unexplained
+    r_amota = [submission_and_amota(items, pr)[3].amota for pr in (r_preds_dev, r_preds)]
+    r_quant = score_quantiles([v for a in r_singles for v in a.values()])
+    log(f"device pipeline on the responsive model (averaged scores {r_quant} at the 0/10/50/"
+        f"90/100% quantiles): max|pipeline - host path| {r_host_err:.3e}, max|kernel - plain| "
+        f"{r_plain_err:.3e}, max|grouped - singles| {r_group_err:.3e}; averaged edges outside "
+        f"RTOL, ATOL with camera features zeroed {r_ctrl['camera']}, lidar {r_ctrl['lidar']} "
+        f"(radar, a reading: {r_ctrl['radar']}); "
+        f"encodings vs the scorer's max|diff| {r_enc_err:.3e} (presence flags equal), zeroed "
+        f"radar encodings {r_radar_ctrl} elements outside; predicted edges vs predict_scenes: "
+        f"{r_flips} at a near-tie of the two paths' averages; AMOTA {r_amota[0]:.4f} vs "
+        f"{r_amota[1]:.4f}")
+    pipe_responsive = dict(scores=r_quant, host_err=r_host_err, plain_err=r_plain_err,
+                           group_err=r_group_err, controls=r_ctrl, radar_control=r_radar_ctrl,
+                           encodings_err=r_enc_err, near_tie_edges=r_flips, amota=r_amota)
+    max_err = max(max_err, r_plain_err)
+    del resp, pipe_r, kept, rec, r_plain, r_grouped
 
     # float16 points (predict.point_dtype): float32 points cast for the
     # upload give the scores of float16 points, upcast by the encoders on
@@ -4346,7 +4793,8 @@ def main() -> int:
     # one launch per call; the profiler may drop a launch, so divide by those it saw
     seg_seen = sum(count for _, _, count in seg_rows)
     _, lib_dev_ms, _ = profile_device(lambda: [library() for _ in range(20)])
-    log(f"  device time per call: segment_sum {dev_ms / seg_seen:.4f} ms ({seg_seen} of 20 "
+    per_call = f"{dev_ms / seg_seen:.4f} ms" if seg_seen else "not measured"
+    log(f"  device time per call: segment_sum {per_call} ({seg_seen} of 20 "
         f"launches traced, {dev_ms:.4f} ms), index_add_ with its staging "
         f"{lib_dev_ms / 20:.4f} ms (over 20 calls)")
     del kept, data, ids, mask
@@ -4368,14 +4816,27 @@ def main() -> int:
             with plain_segment_sum():
                 tk.train_step(batch)
 
+        def gather_step(tk=tk, batch=batch):
+            with atomic_gathers():
+                tk.train_step(batch)
+
         turns_s = [cuda_ms(plain_step, 3), cuda_ms(lambda: tk.train_step(batch), 5),
                    cuda_ms(lambda: tk.train_step(batch), 5), cuda_ms(plain_step, 3)]
+        # the cost of the reproducible gathers: the same step with
+        # torch.gather's atomic backward (before) and with gather_rows (after)
+        turns_g = [cuda_ms(gather_step, 20), cuda_ms(lambda: tk.train_step(batch), 20),
+                   cuda_ms(lambda: tk.train_step(batch), 20), cuda_ms(gather_step, 20)]
         graph = batch[0] if isinstance(batch, tuple) else batch
+        after, before = (turns_g[1] + turns_g[2]) / 2, (turns_g[0] + turns_g[3]) / 2
+        repro[name].update(step_ms=after, torch_gather_step_ms=before, turns=turns_g)
         log(f"timing active train step {name} (Adam included) at "
             f"{tuple(graph.edge_src.shape)} ({int(graph.edge_mask.sum())} valid edges): "
             f"kernel {(turns_s[1] + turns_s[2]) / 2:.3f} ms, plain segment sum "
             f"{(turns_s[0] + turns_s[3]) / 2:.3f} ms (turns plain/kernel/kernel/plain "
-            + "/".join(f"{t:.3f}" for t in turns_s) + " ms)")
+            + "/".join(f"{t:.3f}" for t in turns_s) + " ms); the reproducible gathers "
+            f"{after:.3f} ms vs torch.gather's atomic backward {before:.3f} ms, "
+            f"{after / before:.3f}x (turns gather/rows/rows/gather "
+            + "/".join(f"{t:.3f}" for t in turns_g) + " ms)")
     del active_train
 
     # ---- 4d. the device pipeline ------------------------------------------
@@ -4581,16 +5042,22 @@ def main() -> int:
         f"gap {epoch_mem - epoch_store:.2f} ms these explain "
         f"{sum(host_epoch['memory']) - sum(host_epoch['store']):.2f} ms")
 
+    # the streaming epoch on a trainer of its own (3g's, whose replays 3g
+    # traced, crashed the process when traced again on an H100)
+    t_s4 = GNNTrainer(make_model("mm"), clr_cfg, init_state_dict=start_sd)
+    stream4 = StreamingEncodedBatcher(paths, t_s4.model, loader, clr["batch_size"], seed=4,
+                                      uniform=True)
     t_form = GNNTrainer(make_model("mm"), clr_cfg, init_state_dict=start_sd)
     enc_b = EncodedGraphBatcher(pairs, 2, seed=0, uniform=True)
-    warm_run = lambda: t_s.fit(stream, epochs=1, verbose=False, fused_steps=4)  # noqa: E731
+    warm_run = lambda: t_s4.fit(stream4, epochs=1, verbose=False, fused_steps=4)  # noqa: E731
     enc_run = lambda: t_form.fit(enc_b, epochs=1, verbose=False, fused_steps=4)  # noqa: E731
-    enc_run()  # capture
+    warm_run()  # capture
+    enc_run()
     for p in paths:
         Path(p + ".enc.npz").unlink()
-    cold_calls = count_calls(t_s.model, "encode_frozen")
+    cold_calls = count_calls(t_s4.model, "encode_frozen")
     cold_ms = wall_epoch_ms(warm_run)
-    del t_s.model.encode_frozen
+    del t_s4.model.encode_frozen
     assert cold_calls[0] > 0 and all(Path(p + ".enc.npz").exists() for p in paths)
     turns = [wall_epoch_ms(warm_run), wall_epoch_ms(enc_run), wall_epoch_ms(enc_run),
              wall_epoch_ms(warm_run)]
@@ -4607,7 +5074,7 @@ def main() -> int:
         f"{train_edges / (enc_ms / 1e3):.0f} training edges/s, device busy "
         f"{100 * store_timing['encoded_busy']:.1f}%; warm/encoded {warm_ms / enc_ms:.3f} "
         "(turns warm/encoded/encoded/warm " + "/".join(f"{t:.2f}" for t in turns) + " ms)")
-    del t_s, t_form, t_ps, t_pm
+    del t_s, t_s4, t_form, t_ps, t_pm
     store_tmp.cleanup()
 
     # ---- 4f. encoder training timing ---------------------------------------
@@ -4624,6 +5091,7 @@ def main() -> int:
         # runs, and the kernel at the group's window grid
         device_pipeline=dict(
             launches=single_launches, grouped_launches=group_launches,
+            responsive=pipe_responsive,
             grid=pipe_kernel["group"][6], ms=pipe_kernel["group"][0],
             plain_ms=pipe_kernel["group"][2], bound_ms=pipe_kernel["group"][3],
             bound_by=pipe_kernel["group"][4], bound_all_slots_ms=pipe_kernel["group"][5],
@@ -4650,6 +5118,11 @@ def main() -> int:
             store_path=dict(launches=c_store[tag] + c_raw[tag], streaming_replays=stream_steps,
                             fit_device_replays=steps,
                             **(dict(timing=store_timing) if tag == "fwd" else {})),
+            # 2b: the backward's own ReLU masks (its debug mask output, off
+            # on the training path) against float64, and the gradients
+            # replaying them, case by case
+            **(dict(relu_masks=dict(tau=RELU_TAU, cases=relu_readings))
+               if tag == "bwd" else {}),
         ))
     kernels.append(dict(
         name="segment_sum", route="cuda", source="batch3dmot_tpu_torch/csrc/segment_sum.cu",
@@ -4661,6 +5134,9 @@ def main() -> int:
         # the store paths' 'noop' mm steps: the attention rows' gathers in
         # the backward
         store_path=dict(launches=c_store["segment_sum"] + c_raw["segment_sum"]),
+        # 3d, 3e, 4c: active training, every gather's backward a segment
+        # sum: launches per step, bit-identical reruns, the step's time
+        active_training=repro,
     ))
     # 3i: each kernel's launches per rank of the two gloo ranks' dry run,
     # and in 3i (a), the NCCL rank's runs alone and the mesh-free ones held
@@ -4677,7 +5153,8 @@ def main() -> int:
     for k, key in zip(kernels, ("fused_mp", "fwd", "bwd", "segment_sum")):
         k["cli"] = dict(launches=cli_run["launches"][key],
                         **(dict(per_call={t: c[key] for t, c in cli_run["per_call"].items()},
-                                timing=cli_run["timing"]) if key == "fwd" else {}))
+                                timing=cli_run["timing"]) if key == "fwd" else {}),
+                        **(dict(responsive=cli_run["responsive"]) if key == "fused_mp" else {}))
     # 3k: each kernel's launches by the nuScenes-tree CLI calls (counted as
     # 3j counts them); 4i's timing and 3k's checked values once
     for k, key in zip(kernels, ("fused_mp", "fwd", "bwd", "segment_sum")):

@@ -1,5 +1,5 @@
 """The segment-sum kernel (B8) at the width of the attention rows'
-backward (``models/layers.py::gather_rows``: D = 288, (256, 4096) x2
+backward (``ops/segment.py::gather_rows``: D = 288, (256, 4096) x2
 windows) on one NVIDIA GPU: one call on random ids, the same sum split
 into k column blocks as k times as many windows (one launch each), and
 ``scatter_add_`` (atomics, for scale); CUDA events over 50 calls after a

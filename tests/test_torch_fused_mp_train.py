@@ -305,3 +305,56 @@ def test_relu_masks_from_stashes_replay_the_loop(name):
     flipped[3].view(-1)[: flipped[3].numel() // 2] ^= True
     _, f_grads, _, _ = run(relu_masks=flipped)
     assert any(not torch.equal(a, b) for a, b in zip(f_grads, grads))
+
+
+@pytest.mark.parametrize("name", ["mm", "pose"])
+def test_mask_entry_plain_path_replays_exactly(name):
+    """The mask entry's plain path (``fused_mp_train_masks`` on CPU tensors:
+    relu_masks_from_stashes in float64 on the plain version's own stashes),
+    replayed through the plain version, gives its gradients and scores
+    exactly, and the training wrapper's; the masks lie in the layout the
+    kernel's mask buffer is read in (``_mask_views``), and every unit's
+    pre-activation lies within its scale."""
+    from batch3dmot_tpu_torch.ops.fused_mp import relu_preactivations_from_stashes
+    from batch3dmot_tpu_torch.ops.fused_mp_train import _mask_views, fused_mp_train_masks
+
+    model = init_params_(make_model(name, depth=2), torch.Generator().manual_seed(1)).double()
+    pose = name == "pose"
+    x0, e0, att, src, dst, mask, ct = (
+        None if a is None else torch.from_numpy(a)
+        for a in _train_inputs(np.random.default_rng(4), 2, 16, 48, model.node_dim,
+                               model.edge_dim, not pose, 1))
+    x0, e0, ct = x0.double(), e0.double(), ct.double()
+    att = None if att is None else att.double()
+    flat, meta = extract_mp_params(model, not pose, model.node_dim, model.edge_dim)
+    scores, stashes, grads, masks = fused_mp_train_masks(
+        x0, e0, att, src, dst, mask, flat, meta, 2, ct, logits=pose)
+    assert len(masks) == 2 * 6 + 3 and all(m.dtype == torch.bool for m in masks)
+
+    def replay(**kw):
+        leaves = [None if t is None else t.clone().requires_grad_() for t in (x0, e0, att)]
+        ws = [w.clone().requires_grad_() for w in flat]
+        out = fused_mp_scores_plain(*leaves, src, dst, mask, ws, meta, 2, pose, **kw)
+        wanted = [t for t in (*leaves, *ws) if t is not None]
+        return out, torch.autograd.grad(out, wanted, ct)
+
+    want = [g for g in grads if g is not None]
+    for kw in ({"relu_masks": masks}, {}):
+        out, got = replay(**kw)
+        assert torch.equal(out, scores)
+        assert len(got) == len(want) and all(torch.equal(a, b) for a, b in zip(got, want))
+
+    # the kernel's byte buffer, filled in relu_masks_from_stashes' order,
+    # reads back as these masks
+    widths = dict(H1=masks[0].shape[-1], H2=masks[1].shape[-1], M1=masks[2].shape[-1],
+                  C1=masks[4].shape[-1], C2=masks[5].shape[-1], L1=masks[-3].shape[-1],
+                  L2=masks[-2].shape[-1], L3=masks[-1].shape[-1])
+    buf = torch.cat([m.reshape(-1).to(torch.uint8) for m in masks])
+    views = _mask_views(buf, widths, 2, 16, 48, 2)
+    assert all(torch.equal(v, m) for v, m in zip(views, masks))
+    with pytest.raises(ValueError, match="mask bytes"):
+        _mask_views(buf[:-1], widths, 2, 16, 48, 2)
+
+    pre = relu_preactivations_from_stashes(stashes, att, src, dst, mask, flat, meta, 2)
+    assert all(torch.equal(z > 0, m) for (z, _), m in zip(pre, masks))
+    assert all(bool((z.abs() <= s).all()) for z, s in pre)
