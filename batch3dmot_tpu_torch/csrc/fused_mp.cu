@@ -10,7 +10,8 @@
 //   B4 _train_fwd_kernel        (:265, E*N <= 32k)
 //   B6 _train_fwd_kernel_tiled  (:523, edge tiles, E*N up to 1M / 2M)
 // One kernel family here covers every bucket up to (1024, 32768), and the
-// inference entry windows up to (1024, 40960) (the device pipeline). The
+// inference entry windows up to (2560, 102400) (COVER_N, COVER_E: the device
+// pipeline's dense window of 500 boxes a frame, L = 5, kNN 40). The
 // tensor-core products live in tc_gemm.cuh, the weight-blob layout and the
 // classifier's fp32 product in mp_common.cuh; the training backward (B5,
 // B7) is fused_mp_train.cu.
@@ -116,6 +117,11 @@ using EdgeRing = SliceRing<EDGE_KC, EDGE_STAGES>;
 using NodeRing = SliceRing<NODE_KC, NODE_STAGES>;
 constexpr int NODE_T = 16;  // node rows per block (one m16 tile)
 constexpr int SMEM_LIMIT = 232448;
+// The cover (ops/fused_mp.py::COVER). Shared memory does not grow with N or
+// E; every buffer sized from them is addressed in 64 bits; the int32 edge
+// ids (b * E + e) and CSR offsets (b * (N + 1) + n) must hold B * E and
+// B * (N + 1) + 1.
+constexpr int COVER_N = 2560, COVER_E = 102400;
 
 // The tensor-core products' weights, split into TF32 parts and laid out
 // as streams of slices by the wrapper (ops/fused_mp.py::tc_weights;
@@ -245,7 +251,10 @@ inline bool read_plan(const int* dims, const Params& p, Plan& pl) {
   const size_t f = sizeof(float);
   const int m4 = p.M / 4, lanes = m4 < 32 ? m4 : 32;
   const int px = passes(p.QW), pp = px + passes(p.PW - p.QW);
-  return pl.edge_rows == EDGE_R && edge_slices(p, nullptr) <= MAX_SLICES &&
+  const long long ids = (long long)p.B * p.E, offs = (long long)p.B * (p.N + 1) + 1;
+  return p.B >= 1 && p.N >= 1 && p.N <= COVER_N && p.E >= 1 && p.E <= COVER_E &&
+         ids <= 2147483647LL && offs <= 2147483647LL &&
+         pl.edge_rows == EDGE_R && edge_slices(p, nullptr) <= MAX_SLICES &&
          pl.node_split >= 1 && pl.node_split <= px && pl.proj_split >= 1 &&
          pl.proj_split <= pp && node_slices(p, 0, pl.node_split, true, nullptr) <= MAX_NODE_SLICES &&
          xproj_slices(p, 0, pl.proj_split, nullptr) <= MAX_NODE_SLICES &&

@@ -41,7 +41,7 @@
 //     and CH (ops/segment_kernel.py::segment_plan): small tiles fill the
 //     card at (256, 4096) x8; CH bounds shared memory whatever E is (a
 //     block walks a longer window chunk by chunk), so nothing caps E:
-//     the device pipeline's windows reach (1024, 40960).
+//     the device pipeline's windows reach (2560, 102400).
 
 #include <cuda_runtime.h>
 

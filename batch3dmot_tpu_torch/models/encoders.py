@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from batch3dmot_tpu_torch.models.layers import batch_norm, batch_norm_last, init_params_
+from batch3dmot_tpu_torch.models.layers import batch_norm, batch_norm_last
 from batch3dmot_tpu_torch.parallel.mesh import batch_mean, rand_rows
 
 
@@ -146,8 +146,10 @@ class ResNetAE(nn.Module):
 
 class STNkd(nn.Module):
     """Spatial transformer: a k x k alignment matrix per cloud, the identity
-    plus ``fc3``'s output (``fc3`` starts at zero in
-    :func:`init_encoder_params_`, as the flax ``fc_out`` does)."""
+    plus ``fc3``'s output (``fc3`` starts at zero in ``init_params_``, as
+    the flax ``fc_out`` does, so each transform starts at the identity)."""
+
+    ZERO_INIT = ("fc3",)
 
     def __init__(self, k: int = 3):
         super().__init__()
@@ -306,14 +308,3 @@ class RadarNetClassifier(_Classifier):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         return F.log_softmax(self.fc3(self.feat_256(x, train, generator)), dim=-1)
 
-
-@torch.no_grad()
-def init_encoder_params_(module: nn.Module, generator: torch.Generator) -> nn.Module:
-    """:func:`init_params_`, then every T-Net's ``fc3`` at zero so that each
-    transform starts at the identity (the flax ``fc_out`` init)."""
-    init_params_(module, generator)
-    for mod in module.modules():
-        if isinstance(mod, STNkd):
-            mod.fc3.weight.zero_()
-            mod.fc3.bias.zero_()
-    return module

@@ -144,22 +144,57 @@ def batch_norm_last(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
     return batch_norm(bn, x.reshape(-1, c), train).reshape(x.shape)
 
 
+# flax's lecun_normal: a normal cut at two standard deviations, rescaled by
+# this constant (the std of the unit normal truncated at +-2) so that the
+# draw's variance is 1 / fan_in
+_TRUNC_STD = 0.87962566103423978
+
+
+def _lecun_normal_(p: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
+    std = 1.0 / math.sqrt(fan_in) / _TRUNC_STD
+    t = torch.empty(p.shape, dtype=torch.float32)
+    nn.init.trunc_normal_(t, std=std, a=-2.0 * std, b=2.0 * std, generator=generator)
+    p.copy_(t)
+
+
+def _glorot_uniform_(p: torch.Tensor, fan_in: int, fan_out: int,
+                     generator: torch.Generator) -> None:
+    bound = math.sqrt(6.0 / (fan_in + fan_out))
+    u = torch.rand(p.shape, generator=generator, dtype=torch.float32)
+    p.copy_((u * 2.0 - 1.0) * bound)
+
+
+def _kernel_fan_in(mod: nn.Module, w: torch.Tensor) -> int:
+    """Fan-in of a weight as flax counts it for its own kernel layout: the
+    input features of a Dense ([out, in] here), a point conv ([out, in, 1])
+    or a Conv (OIHW here, HWIO there: in x kh x kw), and for a transposed
+    conv ([in, out, kh, kw] here) the flax decoder conv's in x kh x kw."""
+    if isinstance(mod, nn.ConvTranspose2d):
+        return w.shape[0] * w[0, 0].numel()
+    return w[0].numel()
+
+
 @torch.no_grad()
 def init_params_(module: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Fill every parameter with seeded random values: U(-1/sqrt(fan_in),
-    1/sqrt(fan_in)) for weights and biases, batch-norm affine (1, 0) and
-    running statistics (0, 1), and for a GATConv Glorot-uniform ``lin``
-    and attention vectors with a zero bias (PyG's and flax's init). The
-    same seed gives the same weights."""
+    """Fill every parameter with seeded random values as the JAX package
+    (flax's defaults) draws them: every Dense, point-conv, conv and
+    transposed-conv kernel lecun-normal (a normal of std 1/sqrt(fan_in)
+    cut at two of its standard deviations, fan-in of the flax kernel's
+    layout), every bias zero, batch-norm affine (1, 0) and running
+    statistics (0, 1); a GATConv's ``lin`` lecun-normal and its attention
+    vectors Glorot-uniform; a single-token attention's value slice
+    lecun-normal and its (unused) query and key slices zero; and the
+    parameters of every child a module lists in ``ZERO_INIT`` (the
+    T-Nets' ``fc3``, flax's ``fc_out``) zero. The same seed gives the same
+    weights."""
     done = set()
     for mod in module.modules():
         if id(mod) in done:
             continue
         if isinstance(mod, GATConv):
-            for p in (mod.lin.weight, mod.att_src, mod.att_dst):
-                bound = math.sqrt(6.0 / (p.shape[-1] + p.shape[-2]))
-                u = torch.rand(p.shape, generator=generator, dtype=torch.float32)
-                p.copy_((u * 2.0 - 1.0) * bound)
+            _lecun_normal_(mod.lin.weight, mod.features, generator)
+            for p in (mod.att_src, mod.att_dst):
+                _glorot_uniform_(p, mod.features, 1, generator)
             mod.bias.zero_()
             done.add(id(mod.lin))
             continue
@@ -169,15 +204,19 @@ def init_params_(module: nn.Module, generator: torch.Generator) -> nn.Module:
             mod.running_mean.zero_()
             mod.running_var.fill_(1.0)
             continue
+        if isinstance(mod, SingleTokenAttention):
+            d = mod.dim
+            mod.in_proj_weight.zero_()
+            _lecun_normal_(mod.in_proj_weight[2 * d:], d, generator)
+            mod.in_proj_bias.zero_()
+            continue
         for name, p in mod.named_parameters(recurse=False):
-            if isinstance(mod, SingleTokenAttention):
-                fan_in = mod.dim
-            elif p.dim() > 1:
-                fan_in = p[0].numel()
+            if name == "bias":
+                p.zero_()
             else:
-                weight = getattr(mod, "weight", None)
-                fan_in = weight[0].numel() if weight is not None else p.numel()
-            bound = 1.0 / math.sqrt(fan_in)
-            u = torch.rand(p.shape, generator=generator, dtype=torch.float32)
-            p.copy_((u * 2.0 - 1.0) * bound)
+                _lecun_normal_(p, _kernel_fan_in(mod, p), generator)
+    for mod in module.modules():
+        for child in getattr(mod, "ZERO_INIT", ()):
+            for p in getattr(mod, child).parameters():
+                p.zero_()
     return module

@@ -50,8 +50,9 @@ def library_path(name: str) -> Path:
 
 def build(names: Sequence[str]) -> Dict[str, dict]:
     """Compile every missing library among ``names``, one ``nvcc`` each, all
-    started together. Returns per name: path, seconds and the compiler's
-    resource report (registers, shared memory, spills)."""
+    started together. Returns per name: path, seconds, whether this call
+    compiled it (``compiled``; False for a library already built) and the
+    compiler's resource report (registers, shared memory, spills)."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = {}
     for name in names:
@@ -74,7 +75,8 @@ def build(names: Sequence[str]) -> Dict[str, dict]:
                 raise RuntimeError(f"nvcc failed for {name}:\n{log}")
             os.replace(tmp, out)
         report[name] = dict(
-            path=str(out), seconds=time.perf_counter() - t0, log=log
+            path=str(out), seconds=time.perf_counter() - t0,
+            compiled=proc is not None, log=log
         )
     return report
 

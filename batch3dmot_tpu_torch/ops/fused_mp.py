@@ -37,14 +37,18 @@ from batch3dmot_tpu_torch.ops import cuda_build
 SMEM_LIMIT = 232_448  # shared memory a block can use on Hopper
 H100_SMS = 132
 # csrc/fused_mp.cu: the largest shape the inference kernel covers: the
-# largest bucket's 1024 nodes, and the device pipeline's windows of
-# (max_nodes, max_nodes * k) up to kNN 40 (shared memory does not grow with
-# E, and int32 edge ids hold B * E); the training pair keeps the largest
-# bucket (TRAIN_COVER, ops/fused_mp_train.py); the edge kernel's rows, weight slice depth (K), ring slots and
+# device pipeline's windows of (max_nodes, max_nodes * k) up to a dense
+# nuScenes window (500 boxes a frame x L = 5 -> 2,560 nodes, x kNN 40 ->
+# 102,400 edges; shared memory does not grow with N or E, every buffer
+# sized from them is indexed in 64 bits, and the int32 edge ids and CSR
+# offsets must hold B * E and B * (N + 1) + 1, INT32_IDS); the training
+# pair keeps the largest bucket (TRAIN_COVER, ops/fused_mp_train.py); the
+# edge kernel's rows, weight slice depth (K), ring slots and
 # most slices per layer; the node kernels' rows, slice depth, ring slots
 # and most slices per block; the room for a ring's mbarriers; the
 # activations' row padding; the classifier's rows and fp32 weight stages
-COVER = (1024, 40960)
+COVER = (2560, 102400)
+INT32_IDS = 2**31 - 1
 _EDGE_R, _EDGE_KC, _EDGE_STAGES, _MAX_SLICES = 64, 16, 3, 128
 _NODE_T, _NODE_KC, _NODE_STAGES, _MAX_NODE_SLICES = 16, 16, 3, 128
 _BAR, _PAD, _CLS_ROWS, _CLS_SW = 16, 4, 32, 2 * 16 * 256
@@ -464,14 +468,17 @@ def fused_mp_plan(b: int, n: int, e: int, widths: dict, with_att: bool,
     ``sm_count`` SMs, at most one share per pass), and the shared-memory
     bytes of each kernel, as ``csrc/fused_mp.cu`` lays them out (it refuses
     a plan that differs from its own arithmetic). Raises for a shape outside
-    the cover: beyond ``COVER``, a width that is not a multiple of 4, a
-    message width the per-node sums cannot lay over a warp's lanes, more
-    weight slices than a block's slice table holds, or a kernel over the
-    shared memory of a block."""
+    the cover: beyond ``COVER`` or the int32 edge ids, a width that is not
+    a multiple of 4, a message width the per-node sums cannot lay over a
+    warp's lanes, more weight slices than a block's slice table holds, or
+    a kernel over the shared memory of a block."""
     w = widths
     if not (b >= 1 and 1 <= n <= COVER[0] and 1 <= e <= COVER[1]):
         raise ValueError(f"fused MP kernel: {b} windows of ({n}, {e}) lie outside "
                          f"its cover (up to {COVER})")
+    if b * e > INT32_IDS or b * (n + 1) + 1 > INT32_IDS:
+        raise ValueError(f"fused MP kernel: {b} windows of ({n}, {e}) overflow its int32 "
+                         f"edge ids (cover up to {COVER}, B * E up to {INT32_IDS})")
     if any(v % 4 for v in w.values()):
         raise ValueError(f"fused MP kernel: widths must be multiples of 4, got {w}")
     m4 = w["M"] // 4

@@ -51,8 +51,8 @@ from batch3dmot_tpu_torch.models.encoders import (
     ResNetAE,
     feature_transform_regularizer,
     image_input_f32,
-    init_encoder_params_,
 )
+from batch3dmot_tpu_torch.models.layers import init_params_
 from batch3dmot_tpu_torch.parallel.mesh import (
     RowTable,
     all_reduce_grads,
@@ -101,7 +101,7 @@ class EncoderTrainer:
     on the CPU. The weights come from ``init_variables`` (a JAX encoder
     tree, ``{"params", "batch_stats"}`` with numpy leaves, as the JAX
     trainer's ``variables``) when given, else from ``cfg.manual_seed +
-    seed`` through ``init_encoder_params_``; the trainer's generator (for
+    seed`` through ``init_params_``; the trainer's generator (for
     dropout and the transforms) starts from the same seed. With ``mesh``
     the device is the mesh's, the batch size must divide by its size and
     rank 0's weights are broadcast."""
@@ -128,7 +128,7 @@ class EncoderTrainer:
         self.model, self.device = prepare_model(model, device)
         seed = self.cfg.manual_seed + seed
         if init_variables is None:
-            init_encoder_params_(self.model, torch.Generator().manual_seed(seed))
+            init_params_(self.model, torch.Generator().manual_seed(seed))
         else:
             load_encoder_variables(self.model, init_variables)
         self.lr_at = steplr(self.cfg, steps_per_epoch)

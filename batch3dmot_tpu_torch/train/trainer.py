@@ -154,6 +154,7 @@ class GNNTrainer:
         )
         self.step = 0
         self.graph_replays = 0
+        self.graph_captures = 0
         self._class_ids = torch.tensor(list(TRACKING_CLASSES.values()), dtype=torch.int32,
                                        device=self.device)
         # the sources of steps on the device (with their captured steps) of
@@ -490,6 +491,7 @@ class GNNTrainer:
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             out = self._device_step(res, index, train)
+        self.graph_captures += 1
         return _CapturedStep(graph, index, out)
 
     def _optimizer_snapshot(self):

@@ -9,12 +9,17 @@ Phases, each fatal on failure:
   2. kernels: the inference kernel against its plain PyTorch version on the
      card, on inputs made from a numpy seed, at the shapes the main path
      gives it and beyond (up to the largest bucket, and the device
-     pipeline's windows up to (1024, 40960)), compared on valid edges, and
-     bit-identical across two runs;
+     pipeline's windows up to (1024, 40960); 3l takes the cover's
+     (2560, 102400)), scores and logits compared on valid edges
+     (``held_to_plain``: RTOL, ATOL, and where float32 itself cannot hold
+     them, a float64 run of the plain version decides), and bit-identical
+     across two runs;
   2b. the training pair (the stashing forward and the hand-written
      backward) against autograd of the plain version (``training_pair_
-     checks``), six cases: scores and the stashes x_t, e_t, agg_t at RTOL,
-     ATOL; dx0, de0, datt and every weight gradient under a random
+     checks``) through the logits (on init_params_'s draw random inputs
+     saturate the sigmoid, whose gradient is then 0), six cases: logits
+     and the stashes x_t, e_t, agg_t (``held_to_plain``); dx0, de0, datt
+     and every weight gradient under a random
      cotangent that is non-zero on every edge, masked ones too, against
      the plain version's own branches (a reading: a tensor with ReLU-tie
      outliers is held to a relative L2 error of MAX_REL_L2) and against it
@@ -41,12 +46,15 @@ Phases, each fatal on failure:
      frames, 40 tracks, trainval class mix, window 5, kNN 40) rebuilt from
      the port's modules and driven through ``SceneEncodedScorer.score_scenes``,
      ``predict_scenes``, track assembly and ``evaluate_tracking`` with a
-     full-width depth-6 ``MultimodalGNN`` of seeded random weights; its
-     scores are held against the plain version; the kernel's launch counter
-     must show that the path went through it; then a ``'noop'`` ``PoseGNN``
-     through ``make_scorer``/``score_windows`` over the same windows (the
-     windows path, ``fused_logits_pose``): one launch per window batch,
-     scores held against the plain version window by window;
+     full-width depth-6 ``MultimodalGNN`` of seeded random weights
+     (``init_params_``, as every model here); its scores are held against
+     the plain version (``held_to_plain``, as every kernel-against-plain
+     comparison of scores below: RTOL, ATOL, and past them the replaced
+     function in float64 inside the same path decides); the kernel's
+     launch counter must show that the path went through it; then a
+     ``'noop'`` ``PoseGNN`` through ``make_scorer``/``score_windows`` over
+     the same windows (the windows path, ``fused_logits_pose``): one launch
+     per window batch, scores held against the plain version;
   3b. training path: the same scenes' encodings (``precompute_scene_encodings``)
      and one epoch of ``GNNTrainer.fit`` of a full-width depth-6
      ``MultimodalGNN`` with the ``configs/clr.yaml`` GNN settings from an
@@ -54,18 +62,18 @@ Phases, each fatal on failure:
      equal the steps, the frozen encoders must not move, the epoch
      checkpoint must load into a fresh model; on one fixed batch, 3 steps
      through the kernels and 3 through the plain version give the same
-     losses, and 10 more steps lower the loss; 3 ``train_step``s on raw
+     losses, and 10 more steps lower the loss (at STEP_LR); 3 ``train_step``s on raw
      window batches (crops, points, radar; the frozen encoders inside the
      step) give the losses of the same steps from the encodings;
   3c. active inference: the same workload through ``score_scenes``,
      ``predict_scenes``, tracks and AMOTA with a full-width depth-6
      ``MultimodalGNN(knn_conv_mode='active')``, then an active ``PoseGNN``
      through ``make_scorer``; 18 segment-sum launches per forward; scores
-     held against the same path with the plain segment sum, window by
-     window, where both picked the same kNN graphs (a window whose graphs
-     differ must show a near-tie at the k-th neighbour; they are counted),
-     and on every window with the kernel run's kNN graphs replayed in the
-     plain run;
+     held against the same path with the plain segment sum where both
+     picked the same kNN graphs (a window whose graphs differ must show a
+     near-tie at the k-th neighbour; they are counted), and on every window
+     with the kernel run's kNN graphs replayed in the plain run (the
+     witness: segment sums in float64, the kNN graphs replayed);
   3d. active training: ``GNNTrainer`` steps for ``mm`` from encodings and
      ``pose`` from window batches; every gather's backward is a segment
      sum (``gather_rows``): launches per step exactly
@@ -237,7 +245,18 @@ Phases, each fatal on failure:
      of float32; (4i) each call's wall time, preprocess annotations/s per
      modality, the lidar and radar preprocessors with and without the
      last-sample memo in turns, build-graphs detections/s by stage,
-     predict's rate lines, the float32 and bfloat16 encodes in turns.
+     predict's rate lines, the float32 and bfloat16 encodes in turns;
+  3l. training from scratch (``flagship_phase``): seed 0 of
+     ``scripts/torch_flagship_error_bar.py``'s defaults (the full-width
+     depth-6 mm from ``init_params_``, 80 epochs of ``fit_device`` on 12
+     synthetic scenes, 30 held-out scenes through the encode-once scorer)
+     in this process, its kernel launches counted, AMOTA at least
+     FLAGSHIP_MIN_AMOTA (printed beside the JAX package's 0.9865 +-
+     0.0004); the inference kernel at its widened cover (2560, 102400) x1
+     against its plain version (a dense nuScenes window: 500 boxes a frame,
+     window 5, kNN 40), a shape past it refused; a dense synthetic scene
+     (windows of more than 1,024 nodes) through the device pipeline with
+     the trained model against its module loop (``fused=False``).
 
 Prints an ``{"encoders": [...]}`` line (4f's timings and 3h's checks),
 the card's name and power limit, a ``{"kernels": [...]}`` line (the
@@ -269,19 +288,35 @@ import numpy as np
 # relative tolerance and absolute floor for kernel vs plain version: both
 # are float32; sums run in another order (per-node projections, CSR order)
 RTOL, ATOL = 2e-4, 2e-5
+# Where a kernel's output falls outside RTOL, ATOL of its float32 plain
+# version, the plain version in float64 decides (``held_to_plain``):
+# float32 cannot hold RTOL, ATOL where sums of large terms cancel
+# (init_params_'s draw preserves variance, and six layers of degree-40
+# sums of random features reach 1e3-1e5). The kernel's distance from
+# float64 may then exceed RTOL |f64| + ATOL by at most WITNESS_C times the
+# float32 plain version's largest distance over the same feature row (a
+# node's or an edge's state: its terms are of one size) or, for scores,
+# over the tensor. WITNESS_C is the kernels' arithmetic against float32's:
+# a 3xTF32 product is off by up to 3 x 2^-22 of itself (each operand's
+# small part keeps 11 bits of its residual, and the small x small product
+# is dropped), 12 times a float32 product's 2^-24
+WITNESS_C = 12.0
 # 4i times the lidar and radar preprocessors with and without the port's
 # last-sample memo on this many image annotations of the 3k tree
 MEMO_TIME_ANNS = 100
 # 3k's responsive model: its GNN weights at this many times init_params_'s
-# range (1.0 gives nearly constant scores; 2.0 saturates the sigmoid
-# before the classifier's last layer is rescaled)
-RESPONSIVE_GAIN = 1.75
+# draw (flax's: lecun-normal kernels, zero biases). The torch-style draw
+# the port had before needed 1.75 at a third of this draw's variance (1.0
+# gave nearly constant scores); this draw has that variance at 1.0, and
+# 1.25 leaves a margin. 3k's lidar control prints how many edges it puts
+# outside RTOL, ATOL
+RESPONSIVE_GAIN = 1.25
 # 3f's and 3j's: the bench.py workload's windows (40 tracks, kNN 40) pass
-# each node's sensor features to more edges, whose averages dilute them:
-# at 1.75 zeroed lidar features move the averages by less than RTOL, ATOL
-# (on the card, and by at most 2.9e-4 in a CPU probe at kNN 10-20); at 3.0
-# by up to ~6e-3 (the same probe at kNN 40)
-DENSE_RESPONSIVE_GAIN = 3.0
+# each node's sensor features to more edges, whose averages dilute them.
+# The old draw needed 3.0 there; this draw's gain of equal variance is 3.0
+# / sqrt(3) ~ 1.75 (3f's camera and lidar controls and 3j's lidar control
+# print the edges they put outside)
+DENSE_RESPONSIVE_GAIN = 1.75
 # the encoders a GNN holds (frozen in training), kept by responsive_model
 FROZEN_NAMES = ("resnet", "pointnet", "radarnet")
 # gradients: the JAX package's own gradient tolerance (f32 sums over up to
@@ -294,6 +329,14 @@ FROZEN_NAMES = ("resnet", "pointnet", "radarnet")
 # or missing term gives O(1)), and its distance, and the f32 plain
 # version's, from a float64 run of the plain version are printed
 GRAD_RTOL, GRAD_ATOL = 5e-3, 2e-4
+# the one-batch training steps of 3b, 3d and 3e (the kernels against the
+# plain version, then 10 more that must lower the loss) and 3e's 'noop'
+# PoseGNN: configs/clr.yaml's GNN lr. The JAX package's descent tests take
+# 1e-3 on kNN-8 windows; on the bench.py workload's kNN-40 windows flax's
+# draw diverges there (one step took 3b's loss from 0.648 to 3.887, ten
+# more left it at 0.905), as scripts/flagship_synthetic.py notes for
+# trainval density
+STEP_LR = 1e-4
 MAX_REL_L2 = 1e-2
 # 2b (a): how far from zero a ReLU unit's pre-activation z may lie when the
 # training backward's mask for it differs from the float64 sign, as a share
@@ -546,13 +589,81 @@ def train_grads(model, inputs, ct, depth, logits, fn):
     return s.detach(), grads
 
 
-def compare_grads(got, ref, ref64_fn, what):
+def fused_mp_plain64(x0, e0, att, src, dst, edge_mask, flat, meta, depth, logits=False,
+                     carries=False):
+    """The plain message-passing version in float64 on float32 arguments
+    (features and weights cast up): ``held_to_plain``'s witness."""
+    from batch3dmot_tpu_torch.ops.fused_mp import fused_mp_scores_plain
+
+    def up(t):
+        return None if t is None else t.double()
+
+    return fused_mp_scores_plain(up(x0), up(e0), up(att), src, dst, edge_mask,
+                                 [w.double() for w in flat], meta, depth, logits=logits,
+                                 carries=carries)
+
+
+def as_f64(x):
+    """A float64 tensor of a tensor, an array or a list of arrays (their
+    elements in order)."""
+    import torch
+
+    if isinstance(x, (list, tuple)):
+        x = np.concatenate([np.ravel(a) for a in x]) if len(x) else np.zeros(0)
+    if isinstance(x, np.ndarray):
+        return torch.from_numpy(x.astype(np.float64))
+    return x.detach().double()
+
+
+def held_to_plain(got, ref, ref64_fn, what, rows=False, rtol=RTOL, atol=ATOL):
+    """Holds a kernel's output ``got`` to its float32 plain version ``ref``
+    (tensors, arrays or lists of arrays, alike) at ``rtol``, ``atol``
+    element by element. Where elements fall outside, ``ref64_fn()`` (the
+    plain version in float64 on the same inputs) decides: |got - f64| may
+    exceed rtol |f64| + atol by at most WITNESS_C times the largest
+    |ref - f64| over the element's row (the last axis, with ``rows``:
+    feature rows) or over the tensor; the readings are printed. Returns
+    max |got - ref| and None, or the reading (elements outside,
+    max |got - f64|, max |ref - f64|, the kernel's largest excess in units
+    of that float32 distance)."""
+    got, ref = as_f64(got), as_f64(ref)
+    assert got.shape == ref.shape, (what, got.shape, ref.shape)
+    diff = (got - ref).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    outside = int((diff > rtol * ref.abs() + atol).sum())
+    if outside == 0:
+        return err, None
+    r64 = as_f64(ref64_fn()).to(got.device)
+    d_kernel, d_plain = (got - r64).abs(), (ref - r64).abs()
+    scale = d_plain.amax(-1, keepdim=True) if rows else d_plain.max()
+    excess = (d_kernel - rtol * r64.abs() - atol).clamp_min(0.0)
+    units = float((excess / scale.clamp_min(1e-30)).max())
+    beyond = int((excess > WITNESS_C * scale).sum())
+    reading = (outside, float(d_kernel.max()), float(d_plain.max()), units)
+    log(f"{what}: {outside} of {got.numel()} elements outside rtol {rtol:g}, atol {atol:g} "
+        f"of the float32 plain version; against float64 max|kernel-f64| {reading[1]:.3e}, "
+        f"max|plain-f64| {reading[2]:.3e}, the kernel's largest excess over the tolerance "
+        f"{units:.3f}x "
+        f"the float32 plain version's distance over its {'row' if rows else 'tensor'} "
+        f"(held within {WITNESS_C:g}x)")
+    assert beyond == 0, (what, "the kernel is further from float64 than the float32 plain "
+                         "version allows", beyond, reading)
+    return err, reading
+
+
+def compare_grads(got, ref, ref64_fn, what, branches_fn=None):
     """Holds every gradient tensor at the gradient tolerance (see
-    MAX_REL_L2). Returns max |got - ref| and, for the tensors with
+    MAX_REL_L2). Past it float64 decides, as in held_to_plain: the
+    kernel's RMS distance from float64 must be within WITNESS_C times the
+    float32 plain version's; or else, with ``branches_fn`` (the plain
+    version's gradients under the kernel's own ReLU masks), the tensor
+    must be those element by element (the kernel took other ReLU branches
+    than the float32 plain version, where its forward, held to float64,
+    crossed zero). Returns max |got - ref| and, for the tensors with
     elements outside the tolerance, (name, outside, size, relative L2
     error, RMS of kernel - float64, RMS of f32 plain - float64)."""
     assert set(got) == set(ref), (what, set(got) ^ set(ref))
-    worst, tied, ref64 = 0.0, [], None
+    worst, tied, ref64, branches = 0.0, [], None, None
     for k, r in ref.items():
         g = got[k]
         diff = (g - r).abs()
@@ -569,7 +680,17 @@ def compare_grads(got, ref, ref64_fn, what):
             return float(((a.double() - r64) ** 2).mean().sqrt())
 
         tied.append((k, outside, r.numel(), rel_l2, rms(g), rms(r)))
-        assert rel_l2 <= MAX_REL_L2, (what, k, rel_l2)
+        if rel_l2 <= MAX_REL_L2 or rms(g) <= WITNESS_C * rms(r):
+            continue
+        assert branches_fn is not None, (what, k, rel_l2, rms(g), rms(r))
+        if branches is None:
+            branches = branches_fn()
+        b = branches[k]
+        off = int(((g - b).abs() > GRAD_ATOL * float(b.abs().max()) + GRAD_RTOL * b.abs()).sum())
+        log(f"{what} {k}: relative L2 {rel_l2:.3e} from the float32 plain version's own "
+            f"branches, RMS from float64 kernel {rms(g):.3e}, f32 plain {rms(r):.3e}; under "
+            f"the kernel's own ReLU masks {off} elements outside")
+        assert off == 0, (what, k, rel_l2, rms(g), rms(r), off)
     return worst, tied
 
 
@@ -598,10 +719,19 @@ def grads_outside(got, ref):
     return outside, worst
 
 
+def control_seen(case, beyond, outside, err, z64):
+    """2b (c): checks (a) and (b) must both reject the flipped unit."""
+    assert beyond > 0, (case, "check (a) accepts the flipped unit", z64)
+    assert outside > 0, (case, "check (b) accepts the flipped unit", err, z64)
+
+
 def training_pair_checks(models, rng):
     """Phase 2b: the training pair (B4-B7) against autograd of the plain
-    version on random inputs, case by case (TRAIN_CASES): the scores and
-    stashes at RTOL, ATOL; the gradients against the plain version's own
+    version on random inputs through the logits (on init_params_'s draw
+    such inputs saturate mm's sigmoid, every valid score at (1024, 32768),
+    and a gradient through a saturated sigmoid is 0: the sigmoid's step is
+    held by 3b's and 3k's batches), case by case (TRAIN_CASES): the logits
+    and stashes (``held_to_plain``); the gradients against the plain version's own
     branches (compare_grads, with its relative-L2 escape: a reading) and
     against it replaying the float64 masks of the kernel's stashes (a
     reading); then under the backward kernel's own ReLU masks
@@ -635,27 +765,37 @@ def training_pair_checks(models, rng):
         inputs = random_inputs(rng, windows, n, e, nd, ed, not pose, empty)
         ct = torch.from_numpy(rng.uniform(-1.0, 1.0, (windows, e)).astype(np.float32)).cuda()
         flat, meta = extract_mp_params(model, not pose, nd, ed)
-        scores, stashes, grads_m, kmasks = fused_mp_train_masks(*inputs, flat, meta, 6, ct, pose)
+        scores, stashes, grads_m, kmasks = fused_mp_train_masks(*inputs, flat, meta, 6, ct, True)
         with torch.no_grad():
-            ref = fused_mp_scores_plain(*inputs, flat, meta, 6, pose, carries=True)
+            ref = fused_mp_scores_plain(*inputs, flat, meta, 6, True, carries=True)
         torch.cuda.synchronize()
-        f_err = 0.0
-        for what, a, b in zip(("scores", "x_t", "e_t", "agg_t"), (scores, *stashes), ref):
-            torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL, msg=what)
-            f_err = max(f_err, float((a - b).abs().max()))
-        fwd_err = max(fwd_err, f_err)
-        del ref
-        _, g_k = train_grads(model, inputs, ct, 6, pose, fused_mp_train_scores)
-        _, g_p = train_grads(model, inputs, ct, 6, pose, fused_mp_scores_plain)
+        f_err, ref64 = 0.0, []
 
-        def plain64(model=model, inputs=inputs, ct=ct, pose=pose):
+        def plain64_out(i, inputs=inputs, flat=flat, meta=meta):
+            if not ref64:
+                ref64.extend(fused_mp_plain64(*inputs, flat, meta, 6, True, carries=True))
+            return ref64[i]
+
+        for i, (what, a, b) in enumerate(zip(("scores", "x_t", "e_t", "agg_t"),
+                                             (scores, *stashes), ref)):
+            err, _ = held_to_plain(a, b, functools.partial(plain64_out, i),
+                                   f"2b {name} ({n},{e}) x{windows} {what}", rows=i > 0)
+            f_err = max(f_err, err)
+        fwd_err = max(fwd_err, f_err)
+        del ref, ref64
+        _, g_k = train_grads(model, inputs, ct, 6, True, fused_mp_train_scores)
+        _, g_p = train_grads(model, inputs, ct, 6, True, fused_mp_scores_plain)
+
+        def plain64(model=model, inputs=inputs, ct=ct):
             m64 = copy.deepcopy(model).double()
             i64 = [t.double() if t is not None and t.is_floating_point() else t
                    for t in inputs]
-            return train_grads(m64, i64, ct.double(), 6, pose, fused_mp_scores_plain)[1]
+            return train_grads(m64, i64, ct.double(), 6, True, fused_mp_scores_plain)[1]
 
         # the plain version's own branches (a reading: ReLU ties)
-        err, tied = compare_grads(g_k, g_p, plain64, f"{name} ({n},{e}) x{windows}")
+        err, tied = compare_grads(g_k, g_p, plain64, f"{name} ({n},{e}) x{windows}",
+                                  lambda: train_grads(model, inputs, ct, 6, True, functools.partial(
+                                      fused_mp_scores_plain, relu_masks=kmasks))[1])
         bwd_err = max(bwd_err, err)
         d64 = lambda t: None if t is None else t.double()  # noqa: E731
         pre64 = relu_preactivations_from_stashes(
@@ -667,7 +807,7 @@ def training_pair_checks(models, rng):
         near = sum(int((a != b).sum()) for a, b in zip(masks64, masks32))
         del masks32
         # the float64 masks of the kernel's stashes replayed (a reading)
-        _, g_64 = train_grads(model, inputs, ct, 6, pose, functools.partial(
+        _, g_64 = train_grads(model, inputs, ct, 6, True, functools.partial(
             fused_mp_scores_plain, relu_masks=masks64))
         out64, err64 = grads_outside(g_k, g_64)
         l2_64 = max(float((g_k[k] - r).double().norm() / r.double().norm())
@@ -678,7 +818,7 @@ def training_pair_checks(models, rng):
         differ, beyond = relu_mask_units(kmasks, pre64)
         assert beyond == 0, (name, n, e, "a kernel mask beyond RELU_TAU of zero", differ, beyond)
         # (b) the gradients under the kernel's own masks, no escape
-        _, g_r = train_grads(model, inputs, ct, 6, pose, functools.partial(
+        _, g_r = train_grads(model, inputs, ct, 6, True, functools.partial(
             fused_mp_scores_plain, relu_masks=kmasks))
         out_r, err_r = grads_outside(g_k, g_r)
         assert out_r == 0, (name, n, e, "elements outside under the kernel's masks", out_r)
@@ -699,11 +839,11 @@ def training_pair_checks(models, rng):
         flipped[li] = kmasks[li].clone()
         flipped[li][at] = ~flipped[li][at]
         c_differ, c_beyond = relu_mask_units(flipped, pre64)
-        assert c_beyond > 0, (name, n, e, "check (a) accepts the flipped unit")
-        _, g_f = train_grads(model, inputs, ct, 6, pose, functools.partial(
+        _, g_f = train_grads(model, inputs, ct, 6, True, functools.partial(
             fused_mp_scores_plain, relu_masks=flipped))
         c_out, c_err = grads_outside(g_k, g_f)
-        assert c_out > 0, (name, n, e, "check (b) accepts the flipped unit")
+        control_seen(f"{name} ({n},{e}) x{windows}", c_beyond, c_out, c_err,
+                     float(pre64[li][0][at]))
         del g_f, flipped, z, touched
         # (d) the mask buffer changes nothing: its gradients are the training
         # path's, and the training path's twice
@@ -712,11 +852,11 @@ def training_pair_checks(models, rng):
         flat_l = [w.clone().requires_grad_() for w in flat]
         wanted = [t for t in (*leaves, *flat_l) if t is not None]
         g_train = torch.autograd.grad(
-            fused_mp_train_scores(*leaves, *inputs[3:], flat_l, meta, 6, pose), wanted, ct)
+            fused_mp_train_scores(*leaves, *inputs[3:], flat_l, meta, 6, True), wanted, ct)
         g_mask = [g for g in grads_m if g is not None]
         assert len(g_mask) == len(g_train) and all(
             torch.equal(a, b) for a, b in zip(g_mask, g_train)), "the mask buffer moved a gradient"
-        _, again = train_grads(model, inputs, ct, 6, pose, fused_mp_train_scores)
+        _, again = train_grads(model, inputs, ct, 6, True, fused_mp_train_scores)
         torch.cuda.synchronize()
         for k in g_k:
             assert torch.equal(g_k[k], again[k]), f"{k}: two backward runs differ"
@@ -802,11 +942,15 @@ def state_diff(a, b):
     return differ, worst
 
 
-def plain_scorer(model):
+def plain_scorer(model, float64=False):
     """A SceneEncodedScorer of ``model`` whose window forwards run the plain
-    message-passing version instead of the kernel."""
+    message-passing version instead of the kernel (in float64 with
+    ``float64``: ``held_to_plain``'s witness; the scores come back in
+    float32)."""
     from batch3dmot_tpu_torch.infer.predict import SceneEncodedScorer
     from batch3dmot_tpu_torch.ops.fused_mp import extract_mp_params, fused_mp_scores_plain
+
+    plain = fused_mp_plain64 if float64 else fused_mp_scores_plain
 
     class PlainScorer(SceneEncodedScorer):
         def _forward(self, batch, det_index, enc):
@@ -814,20 +958,24 @@ def plain_scorer(model):
             m = self.model
             x0, e0, att, _ = m.pre_message_passing(batch, x_img, pn, rn, lp, rp)
             flat, meta = extract_mp_params(m, True, m.node_dim, m.edge_dim)
-            return fused_mp_scores_plain(x0, e0, att, batch.edge_src, batch.edge_dst,
-                                         batch.edge_mask, flat, meta, m.depth)
+            return plain(x0, e0, att, batch.edge_src, batch.edge_dst, batch.edge_mask,
+                         flat, meta, m.depth).float()
 
     return PlainScorer(model)
 
 
 @contextlib.contextmanager
-def plain_training():
+def plain_training(float64=False):
     """Training scores through the plain version called directly (autograd
-    differentiates it), instead of the kernel pair."""
+    differentiates it), instead of the kernel pair; with ``float64`` in
+    float64, the scores rounded to float32 (``held_to_plain``'s witness)."""
     from batch3dmot_tpu_torch.ops import fused_mp_train as fmt
 
+    def plain64(*args, **kwargs):
+        return fused_mp_plain64(*args, **kwargs).float()
+
     kernels = fmt.fused_mp_train_scores
-    fmt.fused_mp_train_scores = fmt.fused_mp_scores_plain
+    fmt.fused_mp_train_scores = plain64 if float64 else fmt.fused_mp_scores_plain
     try:
         yield
     finally:
@@ -1013,13 +1161,19 @@ def segment_work(data, ids, mask, n):
 
 
 @contextlib.contextmanager
-def plain_segment_sum():
+def plain_segment_sum(float64=False):
     """The segment-sum dispatcher runs the plain version on the card
-    (autograd still takes the dispatcher's backward)."""
+    (autograd still takes the dispatcher's backward); with ``float64`` it
+    sums in float64 and rounds the sums to the data's dtype: the rest of
+    the float32 path unchanged, ``held_to_plain``'s witness."""
     from batch3dmot_tpu_torch.ops import segment_kernel
 
+    def plain64(data, ids, num_segments, mask=None):
+        return segment_kernel.segment_sum_plain(data.double(), ids, num_segments,
+                                                mask).to(data.dtype)
+
     kernel = segment_kernel.segment_sum_cuda
-    segment_kernel.segment_sum_cuda = segment_kernel.segment_sum_plain
+    segment_kernel.segment_sum_cuda = plain64 if float64 else segment_kernel.segment_sum_plain
     try:
         yield
     finally:
@@ -1061,23 +1215,42 @@ def replay_knn(caps):
         gnn.knn_graph_masked = build
 
 
-def replayed_err(run, kernel):
-    """The plain segment sum's run with the kernel run's kNN graphs
-    replayed, held to the kernel run's scores on every window's valid
-    edges; returns max |kernel - plain|."""
+def replayed_outs(run, caps, float64=False):
+    """``run(outs)`` through the plain segment sum (in float64 with
+    ``float64``) with the kNN graphs ``caps`` replayed."""
     import torch
 
     outs = []
-    with replay_knn(kernel[1]), plain_segment_sum():
+    with replay_knn(caps), plain_segment_sum(float64):
         run(outs)
     torch.cuda.synchronize()
+    return outs
+
+
+def valid_scores(outs, windows=None):
+    """The valid edges' scores of ``outs`` (per forward (edge_mask,
+    scores)), window by window (``windows``: (forward, slot) pairs; all by
+    default), concatenated."""
+    import torch
+
+    if windows is None:
+        windows = [(f, slot) for f, (mask, _) in enumerate(outs) for slot in range(mask.shape[0])]
+    if not windows:
+        return torch.zeros(0)
+    return torch.cat([outs[f][1][slot][outs[f][0][slot].to(outs[f][1].device)]
+                      for f, slot in windows])
+
+
+def replayed_err(run, kernel, what):
+    """The plain segment sum's run with the kernel run's kNN graphs
+    replayed, held to the kernel run's scores on every window's valid
+    edges (``held_to_plain``: the witness sums in float64); returns
+    max |kernel - plain|."""
+    outs = replayed_outs(run, kernel[1])
     assert len(outs) == len(kernel[0])
-    worst = 0.0
-    for (mask, sk), (_, sp) in zip(kernel[0], outs):
-        valid = mask.to(sk.device)
-        torch.testing.assert_close(sk[valid], sp[valid], rtol=RTOL, atol=ATOL)
-        worst = max(worst, float((sk[valid] - sp[valid]).abs().max()))
-    return worst
+    err, _ = held_to_plain(valid_scores(kernel[0]), valid_scores(outs), lambda: valid_scores(
+        replayed_outs(run, kernel[1], float64=True)), what)
+    return err
 
 
 def active_run(run, plain=False):
@@ -1102,9 +1275,11 @@ def knn_rows(cap, slot):
     return torch.where(mask[slot], src[slot], -1).view(n, min(k, n)).sort(-1).values
 
 
-def compare_active(kernel, plain, convs):
-    """Holds the kernel run's scores to the plain run's, window by window,
-    where both built the same kNN graphs at every conv; a window whose
+def compare_active(run, kernel, plain, convs, what):
+    """Holds the kernel run's scores to the plain run's where both built
+    the same kNN graphs at every conv (``held_to_plain`` over those
+    windows; the witness sums in float64 on the kernel run's kNN graphs,
+    replayed into ``run``); a window whose
     graphs differ must differ first at rows where the k-th and (k+1)-th
     allowed distances of the kernel run's x lie within NEAR_TIE of each
     other (after a flip the window's x legitimately differ). Returns max
@@ -1118,7 +1293,7 @@ def compare_active(kernel, plain, convs):
 
     (outs_k, knn_k), (outs_p, knn_p) = kernel, plain
     assert len(outs_k) == len(outs_p) and len(knn_k) == len(knn_p) == convs * len(outs_k)
-    worst, windows, flips = 0.0, 0, []
+    windows, flips, same = 0, [], []
     for f, ((mask, sk), (_, sp)) in enumerate(zip(outs_k, outs_p)):
         for slot in range(mask.shape[0]):
             windows += 1
@@ -1129,11 +1304,7 @@ def compare_active(kernel, plain, convs):
                 if not torch.equal(rows_k, rows_p):
                     break
             else:
-                valid = mask[slot].to(sk.device)
-                a, b = sk[slot][valid], sp[slot][valid]
-                torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL)
-                if a.numel():
-                    worst = max(worst, float((a - b).abs().max()))
+                same.append((f, slot))
                 continue
             x, k, node_valid, pair_valid, _ = caps[conv][0]
             n = x.shape[1]
@@ -1147,6 +1318,9 @@ def compare_active(kernel, plain, convs):
             scale = float((x[slot] ** 2).sum(-1).max())
             flips.append((f, slot, conv, len(rows), float(gaps.max()),
                           float(d[rows, k - 1].max()) / max(scale, 1e-30)))
+    worst, _ = held_to_plain(valid_scores(outs_k, same), valid_scores(outs_p, same),
+                             lambda: valid_scores(replayed_outs(run, knn_k, float64=True), same),
+                             what)
     return worst, windows, flips
 
 
@@ -1261,6 +1435,17 @@ def rounding_flips(preds_a, preds_b, scenes):
                 r != e and abs(aa[r] - aa[e]) <= 2 * noise for r in rivals)
             unexplained += not explained
     return flips, unexplained
+
+
+def held_avgs(got, want, want64_fn, what):
+    """``held_to_plain`` over lists of {(src, dst): mean} dicts: the same
+    keys, the means in the order of ``want``'s keys."""
+    assert [g.keys() for g in got] == [w.keys() for w in want], what
+
+    def flat(dicts):
+        return [np.array([d[k] for k in w], np.float64) for d, w in zip(dicts, want)]
+
+    return held_to_plain(flat(got), flat(want), lambda: flat(want64_fn()), what)
 
 
 def max_avg_diff(got, want, rtol=RTOL, atol=ATOL):
@@ -2738,14 +2923,16 @@ def time_sample_memo(tables, cfg, splits_json, pre, tmp, count=MEMO_TIME_ANNS):
     return out
 
 
-def responsive_model(model, scenes, windows_list, gain=RESPONSIVE_GAIN, seed=11):
+def responsive_model(model, scenes, windows_list, gain=RESPONSIVE_GAIN, seed=11,
+                     buckets=None):
     """A copy of ``model`` whose scores move with the embeddings: its GNN
-    weights drawn from ``seed`` at ``gain`` times ``init_params_``'s range
-    (whose own draw, like a briefly trained model, gives nearly constant
-    scores: the sensor features fade through the attention encoder's five
-    layers), its encoders kept, and the edge classifier's last layer set so
+    weights drawn from ``seed`` at ``gain`` times ``init_params_``'s draw
+    (a briefly trained model gives nearly constant scores: the sensor
+    features fade through the attention encoder's five layers), its
+    encoders kept, and the edge classifier's last layer set so
     that the logits over ``scenes``' windows (the module loop's) have mean
-    0 and standard deviation 2. 3f, 3j and 3k hold their comparisons on
+    0 and standard deviation 2 (``buckets``: the batcher's, for windows
+    past the default buckets). 3f, 3j, 3k and 3l hold their comparisons on
     it."""
     import torch
 
@@ -2768,7 +2955,9 @@ def responsive_model(model, scenes, windows_list, gain=RESPONSIVE_GAIN, seed=11)
     hook = last.register_forward_hook(lambda mod, args, z: logits.append(z))
     try:
         with torch.no_grad():
-            for graph, encs in EncodedGraphBatcher(pairs, 8).epoch(shuffle=False):
+            batcher = EncodedGraphBatcher(pairs, 8, **({} if buckets is None
+                                                        else dict(buckets=buckets)))
+            for graph, encs in batcher.epoch(shuffle=False):
                 graph = graph.to("cuda")
                 out.forward_from_encodings(graph, *(t.cuda() for t in encs))
                 logits[-1] = logits[-1].reshape(graph.edge_mask.shape)[graph.edge_mask]
@@ -2857,11 +3046,12 @@ def nuscenes_model_checks(cfg, model, scene, windows, full, train_store, enc_avg
         # (b), (c)
         k = SceneEncodedScorer(m).score_scene(scene, windows)
         p = plain_scorer(m).score_scene(scene, windows)
-        for a, b in zip(k, p):
-            np.testing.assert_allclose(a, b, rtol=RTOL, atol=ATOL)
+        assert [a.shape for a in k] == [b.shape for b in p]
+        plain_err, witness = held_to_plain(k, p, lambda m=m: plain_scorer(
+            m, float64=True).score_scene(scene, windows), f"3k {tag} window scores")
         flat = np.concatenate(k)
-        r = dict(plain_err=max(float(np.abs(a - b).max()) for a, b in zip(k, p) if a.size),
-                 scores=score_quantiles(flat), edges=int(flat.size))
+        r = dict(plain_err=plain_err, plain_witness=witness, scores=score_quantiles(flat),
+                 edges=int(flat.size))
         for slot, sensor in ((1, "lidar"), (2, "radar")):
             c = zeroed_scorer(m, slot).score_scene(scene, windows)
             r[f"{sensor}_control_err"] = max(float(np.abs(a - b).max())
@@ -2928,19 +3118,24 @@ def nuscenes_model_checks(cfg, model, scene, windows, full, train_store, enc_avg
         with torch.no_grad():
             got = train_forward_cuda(*inputs, flat_w, meta, m.depth, False)[:4]
             ref = fused_mp_scores_plain(*inputs, flat_w, meta, m.depth, False, carries=True)
-        # scores at RTOL, ATOL; the stashes at RTOL and ATOL x max|plain| of
-        # the tensor (the tree's raw pose features scale the node and edge
-        # features far past 1); the readings print each tensor's scale and
-        # how many of its elements fall outside the unscaled ATOL
+        # scores at RTOL, ATOL (held_to_plain); the stashes at RTOL and ATOL
+        # x max|plain| of the tensor (the tree's raw pose features scale the
+        # node and edge features far past 1); the readings print each
+        # tensor's scale and how many of its elements fall outside the
+        # unscaled ATOL
         f_err, stash = 0.0, {}
         for what, a, b in zip(("scores", "x_t", "e_t", "agg_t"), got, ref):
             scale = float(b.abs().max())
-            atol = ATOL * (1.0 if what == "scores" else max(1.0, scale))
             diff = (a - b).abs()
             stash[what] = dict(max_plain=scale, max_diff=float(diff.max()),
                                outside_atol=int((diff > RTOL * b.abs() + ATOL).sum()))
-            torch.testing.assert_close(a, b, rtol=RTOL, atol=atol,
-                                       msg=lambda m, w=what: f"{tag} {w} {stash[w]}: {m}")
+            if what == "scores":
+                held_to_plain(a, b, lambda m=m, inputs=inputs, flat_w=flat_w, meta=meta:
+                              fused_mp_plain64(*inputs, flat_w, meta, m.depth),
+                              f"3k train store batch ({tag}) scores")
+            else:
+                torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL * max(1.0, scale),
+                                           msg=lambda e, w=what: f"{tag} {w} {stash[w]}: {e}")
             f_err = max(f_err, float(diff.max()))
         ct = torch.from_numpy(rng.uniform(-1.0, 1.0, tuple(x0.shape[:1]) + tuple(e0.shape[1:2]))
                               .astype(np.float32)).cuda()
@@ -3360,6 +3555,177 @@ def nuscenes_phase(card):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---- the flagship and the widened cover (phase 3l) ------------------------------
+
+# 3l: seed 0 of scripts/torch_flagship_error_bar.py at its defaults must
+# reach this AMOTA; the JAX package's five seeds gave 0.9865 +- 0.0004
+# (docs/flagship_sweep_r05.json)
+FLAGSHIP_MIN_AMOTA = 0.980
+JAX_FLAGSHIP_AMOTA = (0.9865, 0.0004)
+# a dense scene for the device pipeline: 2,766 detections over 6 frames,
+# whose 5-frame windows pad to the cover's 2,560 nodes (a nuScenes sample
+# holds up to 500 boxes), at kNN 40
+DENSE_SCENE = dict(seed=21, num_frames=6, num_tracks=640, with_modalities=True,
+                   modality_dropout=0.2)
+
+
+def flagship_phase():
+    """Phase 3l: (a) seed 0 of the flagship error bar's defaults
+    (``scripts/torch_flagship_error_bar.py``: 80 epochs of the full-width
+    depth-6 mm trained from scratch on 12 scenes through ``fit_device``,
+    then 30 held-out scenes through the encode-once scorer and AMOTA) in
+    this process, its kernel launches counted (every count set to 0 just
+    before); AMOTA at least FLAGSHIP_MIN_AMOTA; (b) B1-B3 at the widened
+    cover, (2560, 102400) x1 (the flax draw, its random inputs scaled and
+    the classifier's last bias set so that the logits have mean 0 and
+    standard deviation 2), against the plain version at RTOL, ATOL,
+    bit-identical across two runs, and a shape past it refused; (c) a
+    dense scene (windows of more than 1,024 nodes) through the device
+    pipeline with ``responsive_model`` of (a)'s trained model against the
+    pipeline's module loop (``fused=False``) at RTOL, ATOL, one fused
+    launch, its scores spread. Returns what it measured."""
+    import os
+    import re
+
+    import torch
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "scripts"))
+    import torch_flagship_error_bar as error_bar
+    import torch_flagship_synthetic as flagship
+
+    from batch3dmot_tpu_torch.config import GraphConstructionConfig
+    from batch3dmot_tpu_torch.data.synthetic import make_synthetic_scene
+    from batch3dmot_tpu_torch.graphs import build_scene_graphs
+    from batch3dmot_tpu_torch.infer.device_pipeline import DeviceScenePipeline
+    from batch3dmot_tpu_torch.models import MultimodalGNN, init_params_, make_model
+    from batch3dmot_tpu_torch.ops.fused_mp import (
+        COVER,
+        extract_mp_params,
+        fused_mp_plan,
+        fused_mp_scores_cuda,
+        fused_mp_scores_plain,
+        pack_mp_weights,
+    )
+    from batch3dmot_tpu_torch.utils.checkpoint import load_checkpoint
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="b3d_flagship_")
+    ckpt = os.path.join(tmp, "seed0.pt")
+    # (a)
+    args = flagship.build_parser().parse_args(error_bar.seed_argv(0, 80, 30, ckpt))
+    counters(reset=True)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        summary = flagship.run(args)
+    t_flagship = time.perf_counter() - t0
+    launches = counters()
+    printed = json.loads(re.search(r"^kernels (\{.*\})$", out.getvalue(), re.M).group(1))
+    training = re.search(r"^training: .*$", out.getvalue(), re.M).group(0)
+    assert printed["launches"] == launches, (printed, launches)
+    assert all(v > 0 for v in launches.values()), f"a kernel of the flagship never ran: {launches}"
+    log(f"3l (a) flagship seed 0 (error-bar defaults: 80 epochs, 12 scenes, 30 held-out): "
+        f"AMOTA {summary['amota']!r} (the JAX package's five seeds "
+        f"{JAX_FLAGSHIP_AMOTA[0]} +- {JAX_FLAGSHIP_AMOTA[1]}), AMOTP {summary['amotp']!r}, "
+        f"final train AP {summary['final_train_ap']!r}, {training}, held-out "
+        f"{summary['inference_edges']} edges in {summary['inference_s']:.2f} s; launches "
+        f"{launches} (the warm-up steps and captures; {printed['graph_replays']} replays, "
+        f"{printed['graph_captures']} captures), {t_flagship:.1f} s")
+    assert summary["amota"] >= FLAGSHIP_MIN_AMOTA, (summary, FLAGSHIP_MIN_AMOTA)
+
+    # (b) on the flax draw (init_params_), inputs scaled as said below
+    model = init_params_(make_model("mm"), torch.Generator().manual_seed(0)).cuda().eval()
+    nd, ed = model.node_dim, model.edge_dim
+    n, e = COVER
+    flat, meta = extract_mp_params(model, True, nd, ed)
+    _, _, widths = pack_mp_weights(flat, meta, nd, ed, True)
+    for past in ((n + 1, e), (n, e + 1)):
+        try:
+            fused_mp_plan(1, *past, widths, True)
+        except ValueError as err:
+            assert str(COVER) in str(err), err
+        else:
+            raise AssertionError(f"{past} past the cover was not refused")
+    with torch.inference_mode():
+        # random edges give nodes of degree ~40, and six layers of such sums
+        # put the logits of unit inputs in the hundreds (the sigmoid
+        # saturates: a blind comparison); the draw's biases are zero, so its
+        # ReLU network is positively homogeneous: inputs scaled by c scale
+        # the logits by c, here to a standard deviation of 2, and the
+        # classifier's last bias (zero) then moves their mean to 0
+        inputs = random_inputs(np.random.default_rng(15), 1, n, e, nd, ed, True)
+        mask = inputs[-1]
+        unit = fused_mp_scores_plain(*inputs, flat, meta, 6, logits=True)[mask]
+        input_scale = 2.0 / float(unit.std())
+        inputs = tuple(t * input_scale if t.is_floating_point() else t for t in inputs)
+        model.edge_classifier[-1].bias.fill_(-input_scale * float(unit.mean()))
+        flat, meta = extract_mp_params(model, True, nd, ed)
+        got = fused_mp_scores_cuda(*inputs, flat, meta, 6)
+        again = fused_mp_scores_cuda(*inputs, flat, meta, 6)
+        ref = fused_mp_scores_plain(*inputs, flat, meta, 6)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), "two fused_mp runs at the cover differ"
+        torch.testing.assert_close(got[mask], ref[mask], rtol=RTOL, atol=ATOL)
+        cover_err = float((got[mask] - ref[mask]).abs().max())
+        cover_quant = score_quantiles(got[mask].cpu().numpy())
+        assert cover_quant[3] - cover_quant[1] > 0.1, f"saturated scores: {cover_quant}"
+        k_ms = cuda_ms(lambda: fused_mp_scores_cuda(*inputs, flat, meta, 6), 5)
+        p_ms = cuda_ms(lambda: fused_mp_scores_plain(*inputs, flat, meta, 6), 2)
+        flops, nbytes = mp_work(inputs, widths, 6)
+        b_ms, b_by = bound(flops, nbytes)
+    log(f"3l (b) kernel fused_mp at the cover {COVER} x1: max|kernel-plain| {cover_err:.3e} "
+        f"(scores {cover_quant} at the 0/10/50/90/100% quantiles; unit inputs' logits "
+        f"{score_quantiles(unit.cpu().numpy())}, inputs scaled by {input_scale:.3e}) over "
+        f"{int(mask.sum())} "
+        f"valid edges; bit-identical across two runs; kernel "
+        f"{k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}); "
+        f"({n + 1}, {e}) and ({n}, {e + 1}) refused")
+    del inputs, got, again, ref, mask
+
+    # (c) on responsive_model of (a)'s trained model (whose scores on such
+    # a scene, far from its training data, are all near 0)
+    trained = MultimodalGNN(depth=6)
+    trained.load_state_dict(load_checkpoint(ckpt))
+    scene = make_synthetic_scene(**DENSE_SCENE, classes=list(TRAINVAL_CLASS_MIX))
+    host_windows = [w for w in build_scene_graphs(scene, 5, GraphConstructionConfig(
+        top_knn_nodes=40)) if w.num_edges > 0]
+    resp = responsive_model(trained, [scene], [host_windows], gain=DENSE_RESPONSIVE_GAIN,
+                            buckets=(COVER,))
+    pipe = DeviceScenePipeline(resp, 5, 40)
+    _, windows, max_nodes = pipe._quanta(scene)
+    assert 1024 < max_nodes <= COVER[0], max_nodes
+    counters(reset=True)
+    dense = pipe.score_scene(scene)
+    dense_launches = counters()["fused_mp"]
+    assert dense_launches == 1, dense_launches
+    loop = DeviceScenePipeline(resp, 5, 40, fused=False).score_scene(scene)
+    dense_err = max_avg_diff(dense, loop)
+    quant = score_quantiles(list(dense.values()))
+    assert quant[3] - quant[1] > 0.1, f"the dense scene's scores do not move: {quant}"
+    log(f"3l (c) device pipeline on a dense scene ({scene.num_detections} detections, "
+        f"{windows} windows of ({max_nodes}, {max_nodes * 40})): {len(dense)} averaged edges "
+        f"(scores {quant} at the 0/10/50/90/100% quantiles), fused vs module loop max|avg "
+        f"diff| {dense_err:.3e}, {dense_launches} fused launch")
+    t_total = time.perf_counter() - t_phase
+    log(f"3l: {t_total:.1f} s")
+    return dict(
+        flagship=dict(amota=summary["amota"], amotp=summary["amotp"],
+                      final_train_ap=summary["final_train_ap"],
+                      steps_per_s=summary["steps_per_s"],
+                      inference_edges=summary["inference_edges"],
+                      inference_s=summary["inference_s"], graph_replays=printed["graph_replays"],
+                      seconds=t_flagship, jax_amota=JAX_FLAGSHIP_AMOTA),
+        launches=launches,
+        cover=dict(shape=list(COVER), max_abs_err=cover_err, scores=cover_quant,
+                   input_scale=input_scale, ms=k_ms, plain_ms=p_ms,
+                   bound_ms=b_ms, bound_by=b_by),
+        dense_scene=dict(detections=scene.num_detections, windows=windows,
+                         max_nodes=max_nodes, edges=len(dense), max_abs_err=dense_err,
+                         scores=quant, launches=dense_launches),
+        seconds=t_total,
+    )
+
+
 def main() -> int:
     import torch
 
@@ -3486,15 +3852,23 @@ def main() -> int:
             if empty:
                 assert torch.isfinite(got).all(), "padding window not finite"
                 torch.testing.assert_close(got[-1], ref[-1], rtol=RTOL, atol=ATOL)
+            case = f"kernel fused_mp {name} ({n},{e}) x{windows} empty={empty}"
             if mask.any():
-                torch.testing.assert_close(got[mask], ref[mask], rtol=RTOL, atol=ATOL)
-                err = float((got[mask] - ref[mask]).abs().max())
+                err, _ = held_to_plain(got[mask], ref[mask], lambda: fused_mp_plain64(
+                    *inputs, flat, meta, 6, logits=pose)[mask], case)
                 max_err = max(max_err, err)
             else:
                 err = float((got - ref).abs().max())
-            log(f"kernel fused_mp {name} ({n},{e}) x{windows} empty={empty}: "
-                f"max|kernel-plain| {err:.3e} over {int(mask.sum())} valid edges; "
-                "bit-identical across two runs")
+            # the logits too: on init_params_'s draw random inputs saturate
+            # many scores, whose comparison then sees nothing
+            logit_err = err if pose else 0.0
+            if not pose and mask.any():
+                got_l = fused_mp_scores_cuda(*inputs, flat, meta, 6, logits=True)
+                ref_l = fused_mp_scores_plain(*inputs, flat, meta, 6, logits=True)
+                logit_err, _ = held_to_plain(got_l[mask], ref_l[mask], lambda: fused_mp_plain64(
+                    *inputs, flat, meta, 6, logits=True)[mask], f"{case} logits")
+            log(f"{case}: max|kernel-plain| {err:.3e} over {int(mask.sum())} valid edges "
+                f"(logits {logit_err:.3e}); bit-identical across two runs")
             if (n, e) == (1024, 32768):
                 k_ms = cuda_ms(lambda: fused_mp_scores_cuda(*inputs, flat, meta, 6), 5)
                 p_ms = cuda_ms(lambda: fused_mp_scores_plain(*inputs, flat, meta, 6), 3)
@@ -3603,11 +3977,12 @@ def main() -> int:
         f"{len(boxes)} boxes; AMOTA {res.amota:.4f} (untrained random weights)")
 
     plain_scores = plain_scorer(model).score_scenes(scenes, windows_list)
-    path_err = max(float(np.abs(a - b).max())
-                   for ss, ps in zip(scores, plain_scores) for a, b in zip(ss, ps))
     for ss, ps in zip(scores, plain_scores):
-        for a, b in zip(ss, ps):
-            np.testing.assert_allclose(a, b, rtol=RTOL, atol=ATOL)
+        assert [a.shape for a in ss] == [b.shape for b in ps]
+    path_err, _ = held_to_plain(
+        [a for ss in scores for a in ss], [a for ps in plain_scores for a in ps],
+        lambda: [a for ss in plain_scorer(model, float64=True).score_scenes(
+            scenes, windows_list) for a in ss], "main path scores")
     max_err = max(max_err, path_err)
     log(f"main path scores: max|kernel-plain| {path_err:.3e}")
 
@@ -3626,17 +4001,19 @@ def main() -> int:
     pose_launches = fused_mp_scores.launches
     batches = sum(-(-v // 8) for v in buckets.values())
     assert pose_launches == batches, (pose_launches, batches)
-    fused_mp.fused_mp_scores_cuda = fused_mp_scores_plain
-    try:
-        pose_plain = score_windows(noop_scorer, all_windows)
-    finally:
-        fused_mp.fused_mp_scores_cuda = fused_mp_scores_cuda
-    noop_pose_err = 0.0
+    def pose_plain_scores(plain):
+        fused_mp.fused_mp_scores_cuda = plain
+        try:
+            return score_windows(noop_scorer, all_windows)
+        finally:
+            fused_mp.fused_mp_scores_cuda = fused_mp_scores_cuda
+
+    pose_plain = pose_plain_scores(fused_mp_scores_plain)
     for w, a, b in zip(all_windows, pose_scores, pose_plain):
-        assert a.shape == (w.num_edges,) and np.isfinite(a).all()
+        assert a.shape == b.shape == (w.num_edges,) and np.isfinite(a).all()
         assert ((a >= 0) & (a <= 1)).all()
-        np.testing.assert_allclose(a, b, rtol=RTOL, atol=ATOL)
-        noop_pose_err = max(noop_pose_err, float(np.abs(a - b).max()))
+    noop_pose_err, _ = held_to_plain(pose_scores, pose_plain, lambda: pose_plain_scores(
+        lambda *args, **kw: fused_mp_plain64(*args, **kw).float()), "'noop' PoseGNN windows")
     max_err = max(max_err, noop_pose_err)
     log(f"'noop' PoseGNN windows path: {len(all_windows)} windows in {pose_launches} "
         f"fused_mp launches; max|kernel-plain| {noop_pose_err:.3e} window by window")
@@ -3692,16 +4069,23 @@ def main() -> int:
         "loads into a fresh model")
 
     # one fixed batch: 3 steps through the kernels and 3 through the plain
-    # version from the same start, then 10 more kernel steps (lr 1e-3, no
-    # decay, as the JAX package's descent test)
+    # version from the same start, then 10 more kernel steps (STEP_LR, no
+    # decay)
     batch = next(EncodedGraphBatcher(pairs, 2, seed=1, uniform=True).epoch())
-    step_cfg = GNNConfig(batch_size=2, lr=1e-3, weight_decay=0.0)
+    step_cfg = GNNConfig(batch_size=2, lr=STEP_LR, weight_decay=0.0)
     tk = GNNTrainer(make_model("mm"), step_cfg, init_state_dict=start_sd)
     tp = GNNTrainer(make_model("mm"), step_cfg, init_state_dict=start_sd)
     lk = [float(tk.train_step(batch)[0]) for _ in range(3)]
     with plain_training():
         lp = [float(tp.train_step(batch)[0]) for _ in range(3)]
-    np.testing.assert_allclose(lk, lp, rtol=1e-4)
+
+    def plain64_steps():
+        t64 = GNNTrainer(make_model("mm"), step_cfg, init_state_dict=start_sd)
+        with plain_training(float64=True):
+            return [float(t64.train_step(batch)[0]) for _ in range(3)]
+
+    held_to_plain(np.array(lk), np.array(lp), plain64_steps, "3 mm steps' losses",
+                  rtol=1e-4, atol=0.0)
     more = [float(tk.train_step(batch)[0]) for _ in range(10)]
     assert more[-1] < lk[0], (lk, more)
     log(f"training steps on one batch: kernel losses {[f'{v:.6f}' for v in lk]}, plain "
@@ -3781,7 +4165,8 @@ def main() -> int:
             assert ((sc >= 0) & (sc <= 1)).all()
     assert set(sub_a["results"]) == set(sub["results"])
     assert boxes_a and np.isfinite(res_a.amota)
-    act_err, act_windows, flips = compare_active(run_k, run_p, convs)
+    act_err, act_windows, flips = compare_active(mm_run, run_k, run_p, convs,
+                                                 "active path scores")
     seg_err = max(seg_err, act_err)
     log(f"active path: score_scenes {active_ms:.2f} ms (CUDA events), host "
         f"{active_host_ms:.2f} ms, {n_edges / (active_ms / 1e3):.0f} edges/s; "
@@ -3790,7 +4175,7 @@ def main() -> int:
     log(f"active path scores vs the plain segment sum: max|kernel-plain| {act_err:.3e} "
         f"over {act_windows - len(flips)} of {act_windows} windows with the same kNN "
         f"graphs; kNN flips at near-ties: {len(flips)} windows ({flip_summary(flips)})")
-    replay_err = replayed_err(mm_run, run_k)
+    replay_err = replayed_err(mm_run, run_k, "active path, kNN graphs replayed")
     seg_err = max(seg_err, replay_err)
     log(f"active path with the kernel run's kNN graphs replayed in the plain run: "
         f"max|kernel-plain| {replay_err:.3e} over all {act_windows} windows")
@@ -3816,9 +4201,10 @@ def main() -> int:
     assert pose_launches == 18 * len(run_k[0]), (pose_launches, len(run_k[0]))
     for _, sc in run_k[0]:
         assert torch.isfinite(sc).all() and ((sc >= 0) & (sc <= 1)).all()
-    pose_err, pose_windows, pose_flips = compare_active(run_k, run_p, convs)
+    pose_err, pose_windows, pose_flips = compare_active(pose_run, run_k, run_p, convs,
+                                                        "active PoseGNN windows")
     seg_err = max(seg_err, pose_err)
-    pose_replay = replayed_err(pose_run, run_k)
+    pose_replay = replayed_err(pose_run, run_k, "active PoseGNN, kNN graphs replayed")
     seg_err = max(seg_err, pose_replay)
     log(f"active PoseGNN windows path: {len(run_k[0])} forwards, segment_sum launches "
         f"{pose_launches}; max|kernel-plain| {pose_err:.3e} over "
@@ -3888,7 +4274,15 @@ def main() -> int:
         lk = [float(tk.train_step(batch)[0]) for _ in range(3)]
         with plain_segment_sum():
             lp = [float(tp.train_step(batch)[0]) for _ in range(3)]
-        np.testing.assert_allclose(lk, lp, rtol=1e-4)
+
+        def plain64_steps(name=name, sd=sd, batch=batch):
+            t64 = GNNTrainer(make_model(name, knn_conv_mode="active"), step_cfg,
+                             init_state_dict=sd)
+            with plain_segment_sum(float64=True):
+                return [float(t64.train_step(batch)[0]) for _ in range(3)]
+
+        held_to_plain(np.array(lk), np.array(lp), plain64_steps,
+                      f"3 active {name} steps' losses", rtol=1e-4, atol=0.0)
         more = [float(tk.train_step(batch)[0]) for _ in range(10)]
         assert more[-1] < lk[0], (name, lk, more)
         shape = tuple(batch[0].edge_src.shape if isinstance(batch, tuple)
@@ -4037,7 +4431,7 @@ def main() -> int:
     # on window batches, then fit_device on the stacked windows (one epoch,
     # then one of replays only), then 10 more steps on one batch lower the
     # loss
-    pose_cfg = GNNConfig(batch_size=2, lr=1e-3, weight_decay=0.0)
+    pose_cfg = GNNConfig(batch_size=2, lr=STEP_LR, weight_decay=0.0)
     pose_start = {k: v.clone() for k, v in noop_pose.state_dict().items()}
     t_pose = GNNTrainer(make_model("pose"), pose_cfg, init_state_dict=pose_start)
     pose_b = GraphBatcher(all_windows, 2, seed=0)
@@ -4340,9 +4734,13 @@ def main() -> int:
     act_group_launches = counters()["segment_sum"]
     assert act_single_launches == 18 * len(scenes), act_single_launches
     assert act_group_launches == 18, act_group_launches
-    with replay_knn(knn_caps), plain_segment_sum():
-        act_plain = [pipe_a.score_scene(sc) for sc in scenes]
-    act_pipe_err = max(max_avg_diff(a, b) for a, b in zip(act_singles, act_plain))
+    def act_pipe_plain(float64=False):
+        with replay_knn(knn_caps), plain_segment_sum(float64):
+            return [pipe_a.score_scene(sc) for sc in scenes]
+
+    act_plain = act_pipe_plain()
+    act_pipe_err, _ = held_avgs(act_singles, act_plain, lambda: act_pipe_plain(float64=True),
+                                "active device pipeline, kNN graphs replayed")
     seg_err = max(seg_err, act_pipe_err)
     assert all(g.keys() == a.keys() for g, a in zip(act_grouped, act_singles))
     act_group_diff = max(abs(g[k] - a[k]) for g, a in zip(act_grouped, act_singles) for k in a)
@@ -4565,6 +4963,9 @@ def main() -> int:
 
     # ---- 3k. the nuScenes data plane through the CLI (and its timing, 4i) -------
     nusc_run = nuscenes_phase(card)
+
+    # ---- 3l. the flagship from scratch and the widened cover ------------------
+    flag_run = flagship_phase()
 
     # ---- 4. timing -----------------------------------------------------
     # the first full batch of the (256, 4096) bucket, with the inputs the
@@ -5162,6 +5563,13 @@ def main() -> int:
                              **(dict(per_call={t: c[key] for t, c in nusc_run["per_call"].items()},
                                      timing=nusc_run["timing"], checks=nusc_run["checks"])
                                 if key == "fwd" else {}))
+    # 3l: each kernel's launches by the flagship run (the warm-up steps and
+    # the captures; the replays run without the wrappers); the widened
+    # cover's check, the dense scene's and the flagship's numbers once
+    for k, key in zip(kernels, ("fused_mp", "fwd", "bwd", "segment_sum")):
+        k["flagship"] = dict(launches=flag_run["launches"][key],
+                             **({kk: v for kk, v in flag_run.items() if kk != "launches"}
+                                if key == "fused_mp" else {}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"encoders": enc_timing, "card": card}))
     log(f"card: {card}")

@@ -28,9 +28,8 @@ from batch3dmot_tpu_torch.models.encoders import (
     ResNetAE,
     dropout,
     feature_transform_regularizer,
-    init_encoder_params_,
 )
-from batch3dmot_tpu_torch.models.layers import batch_norm, batch_norm_last
+from batch3dmot_tpu_torch.models.layers import batch_norm, batch_norm_last, init_params_
 from batch3dmot_tpu_torch.utils.weights import encoder_variables, load_encoder_variables
 
 torch.set_num_threads(1)
@@ -181,7 +180,7 @@ def test_classifier_dropout_in_train_mode_only():
     """The classifiers apply dropout (0.3 by default) after fc2 in train mode
     only: two generators give two results, one seed the same, eval mode
     none."""
-    port = init_encoder_params_(PointNetClassifier(7), torch.Generator().manual_seed(0))
+    port = init_params_(PointNetClassifier(7), torch.Generator().manual_seed(0))
     x = torch.from_numpy(np.random.default_rng(0).normal(size=(8, 32, 3)).astype(np.float32))
     state = {k: v.clone() for k, v in port.state_dict().items()}
 
@@ -213,10 +212,10 @@ def test_pointnet_feature_transform_matches_flax(train):
 
 
 def test_tnets_start_at_identity():
-    """init_encoder_params_ zeroes every T-Net's fc3 (flax's fc_out init):
-    trans and trans_feat start at the identity."""
-    port = init_encoder_params_(PointNetClassifier(7, feature_transform=True),
-                                torch.Generator().manual_seed(0))
+    """init_params_ zeroes every T-Net's fc3 (flax's fc_out init): trans
+    and trans_feat start at the identity."""
+    port = init_params_(PointNetClassifier(7, feature_transform=True),
+                        torch.Generator().manual_seed(0))
     _, trans, trans_feat = port(torch.randn(2, 16, 3))
     torch.testing.assert_close(trans, torch.eye(3).expand(2, 3, 3))
     torch.testing.assert_close(trans_feat, torch.eye(64).expand(2, 64, 64))
@@ -226,7 +225,7 @@ def _standalone(name, feature_transform=False):
     make = {"resnet": lambda: ResNetAE(),
             "pointnet": lambda: PointNetClassifier(7, feature_transform=feature_transform),
             "radarnet": lambda: RadarNetClassifier(7)}[name]
-    return make, init_encoder_params_(make(), torch.Generator().manual_seed(5))
+    return make, init_params_(make(), torch.Generator().manual_seed(5))
 
 
 @pytest.mark.parametrize("name,ft", [("resnet", False), ("pointnet", False),

@@ -65,8 +65,9 @@ def test_plan_fits_the_kernels(bucket, name, with_att):
 
 
 # the device pipeline's windows (max_nodes, max_nodes * k): the smoke's
-# scenes at kNN 40, and the largest at kNN 40
-PIPELINE_GRIDS = ((256, 10240), (512, 20480), (1024, 40960))
+# scenes at kNN 40, larger ones at kNN 40, and the largest: a dense
+# nuScenes window (500 boxes a frame, L = 5) at kNN 40
+PIPELINE_GRIDS = ((256, 10240), (512, 20480), (1024, 40960), (2560, 102400))
 
 
 @pytest.mark.parametrize("windows", [1, 16, 64])
@@ -94,14 +95,19 @@ def test_training_pair_keeps_the_largest_bucket():
         train_forward_cuda(x0, e0, e0, idx, idx, mask, flat, meta, 6)
 
 
-@pytest.mark.parametrize("case", ["nodes", "edges", "width", "message lanes"])
+@pytest.mark.parametrize("case", ["nodes", "edges", "ids", "width", "message lanes"])
 def test_plan_refuses_shapes_outside_the_cover(case):
-    """Beyond the largest bucket, a width that is not a multiple of 4, or a
-    message width that the per-node sums cannot lay over a warp's lanes:
-    refused on the host, before any launch."""
+    """Beyond the cover, more windows than the int32 edge ids hold, a width
+    that is not a multiple of 4, or a message width that the per-node sums
+    cannot lay over a warp's lanes: refused on the host, before any
+    launch."""
     w = dict(_packed("mm", True)[4])
     n, e = fused_mp.COVER
-    if case == "nodes":
+    b = 1
+    assert fused_mp_plan(fused_mp.INT32_IDS // e, n, e, w, True)
+    if case == "ids":
+        b = fused_mp.INT32_IDS // e + 1
+    elif case == "nodes":
         n *= 2
     elif case == "edges":
         e *= 2
@@ -110,7 +116,7 @@ def test_plan_refuses_shapes_outside_the_cover(case):
     else:
         w["M"] = 96  # 24 float4 columns: no power of two of lanes
     with pytest.raises(ValueError):
-        fused_mp_plan(1, n, e, w, True)
+        fused_mp_plan(b, n, e, w, True)
 
 
 def _finite_f32(rng, size):

@@ -141,14 +141,17 @@ def test_gat_conv_matches_flax():
 
 
 def test_gat_conv_init_is_glorot_and_seeded():
-    """``init_params_`` gives the GATConv Glorot-uniform weights and
-    attention vectors and a zero bias; the same seed gives the same
-    weights."""
+    """``init_params_`` gives the GATConv what flax gives the JAX GATConv:
+    Glorot-uniform attention vectors, a lecun-normal ``lin`` (a normal of
+    std 1/sqrt(fan_in) cut at two of its standard deviations) and a zero
+    bias; the same seed gives the same weights."""
     a = init_params_(GATConv(48), torch.Generator().manual_seed(3))
     b = init_params_(GATConv(48), torch.Generator().manual_seed(3))
     for (name, p), q in zip(a.named_parameters(), b.parameters()):
         assert torch.equal(p, q), name
     assert not a.bias.any()
-    for p, fan in ((a.lin.weight, 96), (a.att_src, 49), (a.att_dst, 49)):
-        bound = (6.0 / fan) ** 0.5
+    cut = 2.0 / (0.87962566103423978 * 48 ** 0.5)
+    for p, bound in ((a.lin.weight, cut), (a.att_src, (6.0 / 49) ** 0.5),
+                     (a.att_dst, (6.0 / 49) ** 0.5)):
         assert p.abs().max() <= bound and p.abs().max() > 0.8 * bound
+    assert float(a.lin.weight.std()) == pytest.approx(1.0 / 48 ** 0.5, rel=0.05)

@@ -16,7 +16,12 @@ predict, eval on the CPU), which also imports no ``yaml`` until a
 the nuScenes data plane's lidar and radar path (``validate-data``,
 ``preprocess`` of each modality, ``build-graphs`` with the image sensor
 off, ``export-gt``) runs where PIL and PyYAML cannot be imported, as on
-the machine with the card, while an image request there raises."""
+the machine with the card, while an image request there raises; and the
+four end-to-end scripts (``scripts/torch_flagship_synthetic.py``,
+``torch_flagship_error_bar.py``, ``torch_soak_trainval_scale.py``,
+``torch_convergence_trainval.py``) run on the CPU at a tiny size without
+importing any of those modules, and refuse to run without a GPU unless
+``--device cpu`` is given."""
 
 import os
 import subprocess
@@ -404,6 +409,87 @@ def test_data_plane_runs_without_pil_and_yaml(tmp_path):
     proc = subprocess.run(
         [sys.executable, "-c", DATA_PLANE_SCRIPT, root, splits, str(dets), str(tmp_path / "out")],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.rstrip().endswith("ok")
+
+
+END_TO_END_SCRIPT = textwrap.dedent(
+    """
+    import argparse, contextlib, io, sys, tempfile
+    import torch
+    torch.set_num_threads(1)
+    sys.path.insert(0, "scripts")
+    import torch_convergence_trainval as convergence
+    import torch_flagship_error_bar as error_bar
+    import torch_flagship_synthetic as flagship
+    import torch_soak_trainval_scale as soak
+
+    tiny = ["--scenes", "1", "--val-scenes", "1", "--frames", "4", "--tracks", "3",
+            "--depth", "1", "--epochs", "1"]
+    try:
+        flagship.main(tiny)
+    except RuntimeError as err:
+        assert "no CUDA device" in str(err), err
+    else:
+        raise AssertionError("the flagship ran without a GPU and without --device cpu")
+    with contextlib.redirect_stdout(io.StringIO()):
+        summary = flagship.main([*tiny, "--device", "cpu"])
+    assert summary["train_windows"] > 0, summary
+    # the sweep's own logic; each of its runs is the flagship above, in a
+    # process of its own
+    runs = []
+    error_bar.run_flagship = lambda extra, log: runs.append(extra) or dict(
+        amota=0.99, amotp=0.1, final_train_ap=0.9, steps_per_s=1.0)
+    tmp = tempfile.mkdtemp()
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = error_bar.main(["--seeds", "2", "--epochs", "1", "--workdir", tmp,
+                              "--device", "cpu"])
+    assert len(runs) == 4 and all(r[-2:] == ["--device", "cpu"] for r in runs), runs
+    assert out["amota_mean"] == 0.99, out
+    # at the sweep's shape the seeds are held to the JAX package's band
+    def sweep_runs(seed4):
+        def run(extra, log):
+            seed = extra[extra.index("--train-seed") + 1] if "--train-seed" in extra else None
+            return dict(amota=seed4 if seed == "4" else 0.9870, amotp=0.1,
+                        final_train_ap=0.9, steps_per_s=1.0)
+        return run
+
+    for seed4, ok in ((0.9870, True), (0.9493, False)):
+        error_bar.run_flagship = sweep_runs(seed4)
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                error_bar.main(["--workdir", tmp, "--device", "cpu"])
+        except SystemExit as err:
+            assert not ok and "seed 4: AMOTA 0.9493" in str(err), err
+        else:
+            assert ok, "a seed outside the band passed"
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = soak.run(3, 1, 6, 4, 1, False, "cpu")
+        convergence.run(argparse.Namespace(scenes=3, val=1, frames=6, tracks=4, epochs=1,
+                                           lr=1e-4, workdir=tempfile.mkdtemp(),
+                                           device="cpu"))
+    assert 0.0 <= res.amota <= 1.0, res.amota
+    bad = sorted(m for m in sys.modules if m.split(".")[0] in
+                 ("jax", "flax", "optax", "msgpack", "batch3dmot_tpu"))
+    assert not bad, bad
+    print("ok")
+    """
+)
+
+
+def test_end_to_end_scripts_import_no_jax_and_need_device_cpu(tmp_path):
+    """The four end-to-end scripts at a tiny size on the CPU in a process
+    without a GPU: no foreign module imported, and no run on the CPU
+    without ``--device cpu``."""
+    env = dict(os.environ)
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    env["PATH"] = "/usr/bin:/bin"
+    env["PYTHONPATH"] = str(REPO)
+    env["TMPDIR"] = str(tmp_path)
+    proc = subprocess.run(
+        [sys.executable, "-c", END_TO_END_SCRIPT], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.rstrip().endswith("ok")
