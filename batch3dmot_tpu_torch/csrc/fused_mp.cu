@@ -32,9 +32,9 @@
 // 6 is ~13.6 GFLOP against ~2 MiB of inputs and outputs, far above the
 // card's operations-per-byte line. So every product of the edge update,
 // the two message MLPs, the combine MLP and the node projections runs on
-// the tensor cores at float32 accuracy (3xTF32: three TF32 products per
-// step, big and correction terms in separate f32 accumulators, never a
-// single TF32 pass). The design:
+// the tensor cores at float32 accuracy (3xTF32, each 8-deep step's sum
+// rounded to nearest and added to a float32 register sum, tc_gemm.cuh:
+// four TF32 products per step, never a single TF32 pass). The design:
 //   * The weights are split into their TF32 big and small parts once per
 //     call by the wrapper (ops/fused_mp.py::tc_weights and split_tf32, bit
 //     for bit the device's split_tf32) and laid out as streams of K slices
@@ -105,10 +105,11 @@
 namespace {
 
 // Forward tensor-core kernels: 8 warps (two warpgroups). The edge kernel
-// takes 64 rows (wgmma's M) and weight slices 16 deep, three in its ring;
-// the node kernels take NODE_T rows and slices 16 deep, three in the ring.
+// takes 64 rows (wgmma's M) and tc_stream.cuh's EDGE_KC-deep weight slices,
+// EDGE_STAGES in its ring; the node kernels take NODE_T rows and slices 16
+// deep, three in the ring.
 constexpr int FT_WARPS = 8, FT_NT = 32 * FT_WARPS;
-constexpr int EDGE_R = 64, EDGE_KC = 16, EDGE_STAGES = 3;
+constexpr int EDGE_R = 64;
 constexpr int NODE_KC = 16, NODE_STAGES = 3;
 constexpr int MAX_SLICES = 128;       // weight slices of a layer's edge products
 constexpr int MAX_NODE_SLICES = 128;  // weight slices of a node block

@@ -64,8 +64,9 @@
 // against a few hundred MB of stash and scratch traffic, far above the
 // card's operations-per-byte line. So every product of the layer kernels
 // (node_bwd, edge_bwd, node_scatter) and of wgrad_kernel runs on the tensor
-// cores at float32 accuracy (3xTF32 mma.sync, tc_gemm.cuh: three TF32
-// products per step, never a single one). What bounds the kernels now is
+// cores at float32 accuracy (3xTF32 mma.sync, tc_gemm.cuh: four TF32
+// products per step, its sum rounded to nearest, never a single TF32
+// product). What bounds the kernels now is
 // issue and latency around the products, not the tensor cores themselves:
 // each k-step of a warp loads and splits its fragments before its mma, and
 // a product's weights arrive through two cp.async stages. So:
@@ -99,10 +100,8 @@
 
 namespace {
 
-// The edge side takes 32 edge rows (two m16 tiles) per block and 16 warps,
-// with two weight stages of 32 rows; the node kernels 16 rows, NB_WARPS
-// warps and two stages of 16 rows.
-constexpr int EB_MT = 2, EB_WARPS = 16, EB_KC = 32, EB_STAGES = 2;
+// The edge side at tc_gemm.cuh's EB_* configuration; the node kernels 16
+// rows, NB_WARPS warps and two stages of 16 rows.
 constexpr int EB_ROWS = 16 * EB_MT, EB_NT = 32 * EB_WARPS;
 constexpr int EB_SW = tc_stage_floats<EB_KC, EB_STAGES>() + tc_split_floats<EB_MT, EB_KC>();
 constexpr int NB_WARPS = 8, NB_NT = 32 * NB_WARPS;
@@ -788,20 +787,24 @@ wgrad_kernel(const __grid_constant__ WGBatch bt, float* __restrict__ partial) {
     for (int kk = 0; kk < WG_RS; kk += 8) {
       const float* a0 = a + (kk + t) * WG_LA + wk + gq;
       const float* a1 = a0 + 4 * WG_LA;
-      FragA fa[2];
-#pragma unroll
-      for (int m = 0; m < 2; ++m)
-        fa[m].set(a0[16 * m], a0[16 * m + 8], a1[16 * m], a1[16 * m + 8]);
       const float* d0 = d + (kk + t) * WG_LD + wf + gq;
-      FragB fb[4];
+      // per tile: the step's terms into a fresh accumulator, then into the
+      // sums (tc_gemm.cuh); fragments split per row tile to hold the
+      // registers
 #pragma unroll
-      for (int n = 0; n < 4; ++n) fb[n].set(d0[8 * n], d0[8 * n + 4 * WG_LD]);
+      for (int m = 0; m < 2; ++m) {
+        FragA fa;
+        fa.set(a0[16 * m], a0[16 * m + 8], a1[16 * m], a1[16 * m + 8]);
 #pragma unroll
-      for (int term = 0; term < 3; ++term)
+        for (int n = 0; n < 4; ++n) {
+          FragB fb;
+          fb.set(d0[8 * n], d0[8 * n + 4 * WG_LD]);
+          float step[4];
 #pragma unroll
-        for (int n = 0; n < 4; ++n)
-#pragma unroll
-          for (int m = 0; m < 2; ++m) mma_term(acc[m][n], fa[m], fb[n], term);
+          for (int term = 0; term < TC_TERMS; ++term) mma_term(step, fa, fb, term);
+          add_step(acc[m][n], step);
+        }
+      }
     }
     __syncthreads();  // the buffer is read before the next stage refills it
   }

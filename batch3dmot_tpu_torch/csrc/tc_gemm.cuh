@@ -2,7 +2,7 @@
 // training backward (fused_mp_train.cu), which splits its operands itself.
 // The forward's products (fused_mp.cu) run on the tensor cores too, from
 // weights split once per call: tc_stream.cuh (wgmma for the edge kernel,
-// mma.sync for the node kernels), built on split_tf32 and the fragment
+// mma.sync for the node kernels), built on split_tf32 and the step
 // helpers here. Only the classifiers and the backward's once-per-call
 // products stay on mp_common.cuh's fp32 block_gemm.
 //
@@ -10,14 +10,33 @@
 // ties away, as cvt.rna) and small = tf32(x - big); x = big + small to
 // about 2^-22 relative. A product runs small_a*big_b, big_a*small_b and
 // big_a*big_b as mma.sync.m16n8k8 (TF32 in, f32 accumulate); the dropped
-// small_a*small_b term is below f32 rounding. tc_gemm (the layer kernels)
-// keeps the big*big products and the two correction terms in separate
-// accumulators and adds them at the end; the weight-gradient kernel
-// (fused_mp_train.cu) runs the three terms in turn into one accumulator,
-// which saves registers. That is float32 accuracy at three TF32 products
-// per step. A single TF32 product (the big terms alone) keeps about 3
-// digits and is never used here. The order of every sum is fixed, so a
-// second run gives bit-identical results.
+// small_a*small_b term and the split's residue are about 2^-22 of each
+// product, of either sign. A single TF32 product (the big terms alone)
+// keeps about 3 digits and is never used here.
+//
+// How the sums are rounded. The tensor cores add C and a step's eight
+// products in one group: each addend aligned to the largest exponent among
+// them, 2 bits beyond float32's 24 kept and the rest cut toward zero, the
+// aligned sum cut toward zero to float32 (mma.sync.m16n8k8 and
+// wgmma.m64n16k8 on an NVIDIA H100 80GB HBM3: of 80 models of the adder,
+// the one that gives all 2,048 crafted outputs of each,
+// scripts/probe_tc_rounding.py). An accumulator that runs over all of K
+// is cut toward zero of the running sum at every step, so its error has
+// the sign of the result and grows with K, and sums of such results (a
+// node's 40 messages) add it up: six layers of them ended 12-46x further
+// from float64 than float32 is. So no accumulator runs over K. Each
+// 8-deep step (mma_term) first runs its big*big products alone into a
+// fresh accumulator (C = 0), whose sign and exponent are those of the
+// step's sum; that accumulator becomes half a unit in the last place of
+// it (half_ulp), and the three terms are added onto it, so that the final
+// cut toward zero rounds the step's sum to nearest (ties away); the step's
+// result is then added to a float32 register sum (FADD, to nearest).
+// Every rounding is then one to nearest of a sum the size of the step's or
+// the running sum's, as float32's own are. That is four TF32 products per
+// step. tc_gemm runs each term over all of a warp's tiles in turn; the
+// weight-gradient kernel (fused_mp_train.cu) one tile at a time, which
+// saves registers. The order of every sum is fixed, so a second run gives
+// bit-identical results.
 //
 // Fragments of mma.m16n8k8 (PTX ISA), lane = 4 * g + t:
 //   A 16x8 (row):  a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
@@ -40,6 +59,11 @@ namespace {
 
 constexpr int TC_PAD = 4;    // extra floats per row of an A operand
 constexpr int TC_WS = 264;   // stage row stride: 256 columns + 8
+
+// The training backward's edge products (fused_mp_train.cu::edge_gemm,
+// and tc_probe.cu, which runs tc_gemm at them): 32 edge rows (two m16
+// tiles) per block, 16 warps, two weight stages of 32 rows.
+constexpr int EB_MT = 2, EB_WARPS = 16, EB_KC = 32, EB_STAGES = 2;
 
 // Floats of a product's weight stages: STAGES buffers of KC rows.
 template <int KC, int STAGES>
@@ -71,6 +95,15 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// d = a b into a fresh accumulator (C = 0).
+__device__ __forceinline__ void mma_tf32_fresh(float (&d)[4], const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
+}
+
 // An A fragment split into its big and small parts.
 struct FragA {
   uint32_t big[4], small[4];
@@ -91,13 +124,38 @@ struct FragB {
   }
 };
 
-// Term 0, 1 or 2 of a 3xTF32 product d += a b: small_a big_b,
-// big_a small_b, big_a big_b.
+// Plus or minus half a unit in the last place of v (v's sign and
+// exponent, times 2^-24); 0 for 0.
+__device__ __forceinline__ float half_ulp(float v) {
+  return __uint_as_float(__float_as_uint(v) & 0xff800000u) * 0x1p-24f;
+}
+
+// One 8-deep step of a 3xTF32 product, its sum rounded to nearest, in
+// TC_TERMS parts into d (see the note at the top): term 0 runs the
+// big_a big_b products alone into a fresh accumulator, whose sign and
+// exponent are the step's; term 1 turns d into half a unit of it and adds
+// small_a big_b, term 2 big_a small_b, term 3 big_a big_b. The caller
+// then adds d to its float32 sum (add_step).
+constexpr int TC_TERMS = 4;
 __device__ __forceinline__ void mma_term(float (&d)[4], const FragA& a,
                                          const FragB& b, int term) {
-  if (term == 0) mma_tf32(d, a.small, b.big[0], b.big[1]);
-  else if (term == 1) mma_tf32(d, a.big, b.small[0], b.small[1]);
-  else mma_tf32(d, a.big, b.big[0], b.big[1]);
+  if (term == 0) {
+    mma_tf32_fresh(d, a.big, b.big[0], b.big[1]);
+  } else if (term == 1) {
+#pragma unroll
+    for (int h = 0; h < 4; ++h) d[h] = half_ulp(d[h]);
+    mma_tf32(d, a.small, b.big[0], b.big[1]);
+  } else if (term == 2) {
+    mma_tf32(d, a.big, b.small[0], b.small[1]);
+  } else {
+    mma_tf32(d, a.big, b.big[0], b.big[1]);
+  }
+}
+
+// sum += d, rounded to nearest (FADD).
+__device__ __forceinline__ void add_step(float (&sum)[4], const float (&d)[4]) {
+#pragma unroll
+  for (int h = 0; h < 4; ++h) sum[h] += d[h];
 }
 
 // Stage rows k0..k0+kc of W[:, c0:c0+nc] into sW [KC][TC_WS]: 16-byte
@@ -158,11 +216,11 @@ __device__ __forceinline__ void tc_split_slice(const float* sA, int lda, int K,
 // of them ahead of the one in use, KC rows each. The A operand is shared
 // by all warps, so each KC-column slice of it is split into big and small
 // parts once, into sSplit (tc_split_floats), one slice ahead, and the warps
-// read their fragments from there without bank conflicts. The big*big
-// products and the two correction terms go to separate accumulators,
-// added once at the end: more independent mma chains per warp, and the
-// small terms summed among themselves. Ends with a barrier, so that the
-// epilogue's shared-memory writes are visible to the next product.
+// read their fragments from there without bank conflicts. Each 8-deep
+// step's terms (mma_term) go to a fresh accumulator per tile, which is
+// then added to the tile's float32 sum (see the note at the top). Ends with a
+// barrier, so that the epilogue's shared-memory writes are visible to the
+// next product.
 template <int MT, int WARPS, int KC, int STAGES, class Epi>
 __device__ void tc_gemm(const float* sA, int lda, int K,
                         const float* __restrict__ W, int ldw, int N, float* sW,
@@ -175,13 +233,13 @@ __device__ void tc_gemm(const float* sA, int lda, int K,
   for (int c0 = 0; c0 < N; c0 += 256) {
     const int nc = min(256, N - c0);
     const int ntiles = (nc + 7) >> 3, ncp = ntiles * 8;
-    float hi[MT][MAX_TILES][4], lo[MT][MAX_TILES][4];
+    float acc[MT][MAX_TILES][4], d[MT][MAX_TILES][4];
 #pragma unroll
     for (int m = 0; m < MT; ++m)
 #pragma unroll
       for (int j = 0; j < MAX_TILES; ++j)
 #pragma unroll
-        for (int h = 0; h < 4; ++h) hi[m][j][h] = lo[m][j][h] = 0.f;
+        for (int h = 0; h < 4; ++h) acc[m][j][h] = 0.f;
     const int steps = (K + KC - 1) / KC;
 #pragma unroll
     for (int s = 0; s < STAGES - 1; ++s)
@@ -222,16 +280,21 @@ __device__ void tc_gemm(const float* sA, int lda, int K,
         for (int j = 0; j < MAX_TILES; ++j)
           if (warp + j * WARPS < ntiles)
             fb[j].set(b[(warp + j * WARPS) * 8], b[(warp + j * WARPS) * 8 + 4 * TC_WS]);
-        // the three terms in turn over all accumulators, so that products
-        // into one accumulator are several issues apart
+        // the step's terms in turn over all tiles, so that products into
+        // one accumulator are several issues apart; then the step's
+        // products into the sums
 #pragma unroll
-        for (int term = 0; term < 3; ++term)
+        for (int term = 0; term < TC_TERMS; ++term)
 #pragma unroll
           for (int j = 0; j < MAX_TILES; ++j)
             if (warp + j * WARPS < ntiles)
 #pragma unroll
-              for (int m = 0; m < MT; ++m)
-                mma_term(term == 2 ? hi[m][j] : lo[m][j], a[m], fb[j], term);
+              for (int m = 0; m < MT; ++m) mma_term(d[m][j], a[m], fb[j], term);
+#pragma unroll
+        for (int j = 0; j < MAX_TILES; ++j)
+          if (warp + j * WARPS < ntiles)
+#pragma unroll
+            for (int m = 0; m < MT; ++m) add_step(acc[m][j], d[m][j]);
       }
     }
     __pipeline_wait_prior(0);
@@ -244,12 +307,12 @@ __device__ void tc_gemm(const float* sA, int lda, int K,
         if (nt >= ntiles) continue;
         const int c = nt * 8 + 2 * t, r = 16 * m + g;
         if (c < nc) {
-          epi(r, c0 + c, hi[m][j][0] + lo[m][j][0]);
-          epi(r + 8, c0 + c, hi[m][j][2] + lo[m][j][2]);
+          epi(r, c0 + c, acc[m][j][0]);
+          epi(r + 8, c0 + c, acc[m][j][2]);
         }
         if (c + 1 < nc) {
-          epi(r, c0 + c + 1, hi[m][j][1] + lo[m][j][1]);
-          epi(r + 8, c0 + c + 1, hi[m][j][3] + lo[m][j][3]);
+          epi(r, c0 + c + 1, acc[m][j][1]);
+          epi(r + 8, c0 + c + 1, acc[m][j][3]);
         }
       }
   }

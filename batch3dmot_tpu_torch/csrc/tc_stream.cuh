@@ -2,12 +2,19 @@
 // weight slices, for the forward kernels of fused_mp.cu: wgmma for the
 // edge kernel's 64-row tiles, mma.sync for the node kernels' 16-row tiles.
 //
-// 3xTF32 as in tc_gemm.cuh: each operand is split into a TF32 big and
-// small part, and each 8-deep step runs small_a*big_b and big_a*small_b
-// into one accumulator and big_a*big_b into another, added at the end; a
-// single TF32 pass is never used. A block splits only its activations (as
-// it reads its A fragments: wgmma takes A from registers; mma.sync from a
-// split slice in shared memory); the weights arrive split.
+// 3xTF32 and its sums as in tc_gemm.cuh: each operand is split into a TF32
+// big and small part; each 8-deep step runs its big*big products alone
+// into a fresh accumulator, turns it into half a unit of their sum and adds
+// small_a*big_b, big_a*small_b and big_a*big_b onto it, so that the tensor
+// cores' cut toward zero rounds the step's sum to nearest; the step is then
+// added to a float32 register sum. wgmma.m64n16k8 rounds as mma.sync does
+// (scripts/probe_tc_rounding.py on an H100: addends aligned to the largest
+// with 2 extra bits, both cuts toward zero). No accumulator runs over K
+// (one cut toward zero of the running sum per step put the kernels 12-46x
+// further from float64 than float32). A single TF32 pass is never used. A block
+// splits only its activations (as it reads its A fragments: wgmma takes A
+// from registers; mma.sync from a split slice in shared memory); the
+// weights arrive split.
 //
 // Core-matrix layout (both operands, in shared memory and in the stream):
 // a slice of R rows x KC (K-direction) columns is stored as [R / 8][KC / 4]
@@ -33,12 +40,12 @@
 //
 // Per K slice: the threads wait on the slot's mbarrier; one barrier; the
 // products of the slice run (wgmma: each thread reads and splits its A
-// fragments, each warpgroup issues its half of the columns
-// asynchronously, then thread 0 issues the copy STAGES - 1 slices ahead,
-// into the slot the previous slice used, while they run; then
-// wgmma.wait_group 0; mma.sync: each warp takes its 8-column tiles, then
-// the copy is issued and the next activation slice split). The order of
-// every sum is fixed: a second run is bit-identical.
+// fragments, each warpgroup issues its half of the columns, two waits per
+// 8-deep step (the big*big products alone, then the step's terms), thread
+// 0 issuing the copy STAGES - 1 slices ahead, into the slot the previous
+// slice used, after the first; mma.sync: each warp takes its 8-column
+// tiles, then the copy is issued and the next activation slice split).
+// The order of every sum is fixed: a second run is bit-identical.
 
 #pragma once
 
@@ -48,6 +55,11 @@
 #include "tc_gemm.cuh"
 
 namespace {
+
+// The edge kernel's weight slices (fused_mp.cu, and tc_probe.cu, which runs
+// wg_gemm at them): 16 deep, three in its ring (ops/fused_mp.py's _EDGE_KC
+// and stages on the host).
+constexpr int EDGE_KC = 16, EDGE_STAGES = 3;
 
 // Shared-memory descriptor of a no-swizzle K-major operand at p.
 __device__ __forceinline__ uint64_t wg_desc(const float* p, uint32_t lbo, uint32_t sbo) {
@@ -72,15 +84,16 @@ __device__ __forceinline__ void wg_pin(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d[64 x NW] += A[64 x 8] B[8 x NW]: wgmma.m64nNWk8, tf32 in, f32
-// accumulate, A from registers, B from shared memory (descriptor db). Lane
+// d[64 x NW] = A[64 x 8] B[8 x NW] + (scale_d ? d : 0): wgmma.m64nNWk8,
+// tf32 in, f32 accumulate, A from registers, B from shared memory
+// (descriptor db). Lane
 // (g, t) of warp q of the warpgroup holds A's rows 16 q + g (a[0], a[2])
 // and 16 q + g + 8 (a[1], a[3]) at columns t (a[0], a[1]) and t + 4, and
 // D's rows 16 q + g (d[4 i], d[4 i + 1]) and 16 q + g + 8 (d[4 i + 2],
 // d[4 i + 3]) of columns 8 i + 2 t, + 1.
 template <int NW>
 __device__ __forceinline__ void wgmma_tf32(float (&d)[NW / 2], const uint32_t (&a)[4],
-                                           uint64_t db);
+                                           uint64_t db, int scale_d);
 
 // ---- mbarriers and bulk copies ------------------------------------------
 
@@ -266,7 +279,7 @@ __host__ __device__ constexpr int split_floats() {
 
 template <>
 __device__ __forceinline__ void wgmma_tf32<16>(float (&d)[8], const uint32_t (&a)[4],
-                                                 uint64_t db) {
+                                                 uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
@@ -274,13 +287,13 @@ __device__ __forceinline__ void wgmma_tf32<16>(float (&d)[8], const uint32_t (&a
       "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d)
       : "memory");
 }
 
 template <>
 __device__ __forceinline__ void wgmma_tf32<32>(float (&d)[16], const uint32_t (&a)[4],
-                                                 uint64_t db) {
+                                                 uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
@@ -289,13 +302,13 @@ __device__ __forceinline__ void wgmma_tf32<32>(float (&d)[16], const uint32_t (&
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d)
       : "memory");
 }
 
 template <>
 __device__ __forceinline__ void wgmma_tf32<48>(float (&d)[24], const uint32_t (&a)[4],
-                                                 uint64_t db) {
+                                                 uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n48k8.f32.tf32.tf32 {"
@@ -307,13 +320,13 @@ __device__ __forceinline__ void wgmma_tf32<48>(float (&d)[24], const uint32_t (&
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
         "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
         "+f"(d[22]), "+f"(d[23])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d)
       : "memory");
 }
 
 template <>
 __device__ __forceinline__ void wgmma_tf32<64>(float (&d)[32], const uint32_t (&a)[4],
-                                                 uint64_t db) {
+                                                 uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
@@ -327,13 +340,13 @@ __device__ __forceinline__ void wgmma_tf32<64>(float (&d)[32], const uint32_t (&
         "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
         "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
         "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d)
       : "memory");
 }
 
 template <>
 __device__ __forceinline__ void wgmma_tf32<80>(float (&d)[40], const uint32_t (&a)[4],
-                                                 uint64_t db) {
+                                                 uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n80k8.f32.tf32.tf32 {"
@@ -349,13 +362,13 @@ __device__ __forceinline__ void wgmma_tf32<80>(float (&d)[40], const uint32_t (&
         "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
         "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
         "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d)
       : "memory");
 }
 
 template <>
 __device__ __forceinline__ void wgmma_tf32<96>(float (&d)[48], const uint32_t (&a)[4],
-                                                 uint64_t db) {
+                                                 uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 {"
@@ -373,13 +386,13 @@ __device__ __forceinline__ void wgmma_tf32<96>(float (&d)[48], const uint32_t (&
         "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
         "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
         "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d)
       : "memory");
 }
 
 template <>
 __device__ __forceinline__ void wgmma_tf32<112>(float (&d)[56], const uint32_t (&a)[4],
-                                                 uint64_t db) {
+                                                 uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n112k8.f32.tf32.tf32 {"
@@ -399,13 +412,13 @@ __device__ __forceinline__ void wgmma_tf32<112>(float (&d)[56], const uint32_t (
         "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]),
         "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d)
       : "memory");
 }
 
 template <>
 __device__ __forceinline__ void wgmma_tf32<128>(float (&d)[64], const uint32_t (&a)[4],
-                                                 uint64_t db) {
+                                                 uint64_t db, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
@@ -428,7 +441,7 @@ __device__ __forceinline__ void wgmma_tf32<128>(float (&d)[64], const uint32_t (
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]),
         "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
         "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d)
       : "memory");
 }
 
@@ -447,9 +460,9 @@ __device__ __forceinline__ void wg_pass(const float* sA, int lda, int K, int c0,
   const int wg = threadIdx.x >> 7, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int r = 16 * ((threadIdx.x >> 5) & 3) + g;  // this thread's rows r, r + 8
   const float* a_row = sA + r * lda + t;
-  float hi[NW / 2], lo[NW / 2];
+  float acc[NW / 2], d[NW / 2];
 #pragma unroll
-  for (int i = 0; i < NW / 2; ++i) hi[i] = lo[i] = 0.f;
+  for (int i = 0; i < NW / 2; ++i) acc[i] = d[i] = 0.f;
   const int steps = (K + KC - 1) / KC;
   for (int s = 0; s < steps; ++s) {
     const int c = ring.wait_next();
@@ -471,25 +484,35 @@ __device__ __forceinline__ void wg_pass(const float* sA, int lda, int K, int c0,
     for (int kk = 0; kk < KC / 8; ++kk) {
       const uint64_t b_big = wg_desc(wb + 64 * kk, LBO, SBO);
       const uint64_t b_small = wg_desc(wb + SH + 64 * kk, LBO, SBO);
-      wgmma_tf32<NW>(lo, a_small[kk], b_big);
-      wgmma_tf32<NW>(lo, a_big[kk], b_small);
-      wgmma_tf32<NW>(hi, a_big[kk], b_big);
+      // each 8-deep step as mma_term (tc_gemm.cuh) runs it: the big*big
+      // products alone into a fresh accumulator (scale-d 0), d = half a
+      // unit of their sum, the three terms onto d, d into the sums
+      wgmma_tf32<NW>(d, a_big[kk], b_big, 0);
+      wg_commit();
+      if (kk == 0 && threadIdx.x == 0) ring.issue(c + STAGES - 1);  // into slice c - 1's slot
+      wg_wait_all();
+      wg_pin(d);
+#pragma unroll
+      for (int i = 0; i < NW / 2; ++i) d[i] = half_ulp(d[i]);
+      wg_fence();
+      wgmma_tf32<NW>(d, a_small[kk], b_big, 1);
+      wgmma_tf32<NW>(d, a_big[kk], b_small, 1);
+      wgmma_tf32<NW>(d, a_big[kk], b_big, 1);
+      wg_commit();
+      wg_wait_all();
+      wg_pin(d);
+#pragma unroll
+      for (int i = 0; i < NW / 2; ++i) acc[i] += d[i];
+      if (kk + 1 < KC / 8) wg_fence();
     }
-    wg_commit();
-    if (threadIdx.x == 0) ring.issue(c + STAGES - 1);  // into the slot of slice c - 1
-    wg_wait_all();
-    wg_pin(hi);
-    wg_pin(lo);
   }
   __syncthreads();  // the warpgroups leave the pass together (measured faster)
 #pragma unroll
   for (int i = 0; i < NW / 8; ++i) {
     const int col = wg * NW + 8 * i + 2 * t;
     if (col >= P) continue;
-    store_pair(out, ldo, r, c0 + col, 64, bias, relu, hi[4 * i] + lo[4 * i],
-               hi[4 * i + 1] + lo[4 * i + 1]);
-    store_pair(out, ldo, r + 8, c0 + col, 64, bias, relu, hi[4 * i + 2] + lo[4 * i + 2],
-               hi[4 * i + 3] + lo[4 * i + 3]);
+    store_pair(out, ldo, r, c0 + col, 64, bias, relu, acc[4 * i], acc[4 * i + 1]);
+    store_pair(out, ldo, r + 8, c0 + col, 64, bias, relu, acc[4 * i + 2], acc[4 * i + 3]);
   }
 }
 
@@ -532,8 +555,9 @@ __device__ void wg_gemm(const float* sA, int lda, int K, int N, SliceRing<KC, ST
 // act(sA[0:16, :K] @ W[:K, c0:c0 + P] + bias), rows past nrows not
 // written. The block's 8 warps take the pass's 8-column tiles in turn
 // (tile w, w + 8, ...); each warp reads its fragments from the ring slot
-// and the split slice, and holds its big*big and correction terms in
-// separate accumulators. Ends with a barrier.
+// and the split slice, runs each 8-deep step's terms (mma_term) into a
+// fresh accumulator per tile and adds it to the tile's float32 sum. Ends
+// with a barrier.
 template <int KC, int STAGES>
 __device__ void mma_pass(const float* sA, int lda, int K, int c0, int P,
                          SliceRing<KC, STAGES>& ring, float* sSplit, float* out, int ldo,
@@ -541,11 +565,11 @@ __device__ void mma_pass(const float* sA, int lda, int K, int c0, int P,
   constexpr int KG = KC / 4, AH = 16 * KC, PER = 4;  // up to 32 tiles over 8 warps
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int tiles = 2 * wg_cols(P) / 8, SH = 2 * wg_cols(P) * KC;
-  float hi[PER][4], lo[PER][4];
+  float acc[PER][4], d[PER][4];
 #pragma unroll
   for (int j = 0; j < PER; ++j)
 #pragma unroll
-    for (int h = 0; h < 4; ++h) hi[j][h] = lo[j][h] = 0.f;
+    for (int h = 0; h < 4; ++h) acc[j][h] = 0.f;
   const int steps = (K + KC - 1) / KC;
   split_slice<16, KC>(sA, lda, K, 0, sSplit);
   for (int s = 0; s < steps; ++s) {
@@ -577,10 +601,13 @@ __device__ void mma_pass(const float* sA, int lda, int K, int c0, int P,
         fb[j].small[1] = __float_as_uint(b[SH + 32]);
       }
 #pragma unroll
-      for (int term = 0; term < 3; ++term)
+      for (int term = 0; term < TC_TERMS; ++term)
 #pragma unroll
         for (int j = 0; j < PER; ++j)
-          if (warp + 8 * j < tiles) mma_term(term == 2 ? hi[j] : lo[j], a, fb[j], term);
+          if (warp + 8 * j < tiles) mma_term(d[j], a, fb[j], term);
+#pragma unroll
+      for (int j = 0; j < PER; ++j)
+        if (warp + 8 * j < tiles) add_step(acc[j], d[j]);
     }
     if (threadIdx.x == 0) ring.issue(c + STAGES - 1);  // into the slot of slice c - 1
     if (s + 1 < steps) split_slice<16, KC>(sA, lda, K, s + 1, sSplit + ((s + 1) & 1) * 2 * AH);
@@ -590,10 +617,8 @@ __device__ void mma_pass(const float* sA, int lda, int K, int c0, int P,
   for (int j = 0; j < PER; ++j) {
     const int col = (warp + 8 * j) * 8 + 2 * t;
     if (warp + 8 * j >= tiles || col >= P) continue;
-    store_pair(out, ldo, g, c0 + col, nrows, bias, relu, hi[j][0] + lo[j][0],
-               hi[j][1] + lo[j][1]);
-    store_pair(out, ldo, g + 8, c0 + col, nrows, bias, relu, hi[j][2] + lo[j][2],
-               hi[j][3] + lo[j][3]);
+    store_pair(out, ldo, g, c0 + col, nrows, bias, relu, acc[j][0], acc[j][1]);
+    store_pair(out, ldo, g + 8, c0 + col, nrows, bias, relu, acc[j][2], acc[j][3]);
   }
   __syncthreads();
 }

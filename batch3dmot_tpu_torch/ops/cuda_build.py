@@ -107,6 +107,14 @@ _ARGTYPES = {
         # segment_sum_forward(dims, data, ids, mask, out, stream)
         "segment_sum_forward": (6, ctypes.c_int),
     },
+    "tc_probe": {
+        # tc_probe_mma / tc_probe_wgmma(dims, A, B, C, D, stream)
+        "tc_probe_mma": (6, ctypes.c_int),
+        "tc_probe_wgmma": (6, ctypes.c_int),
+        # tc_probe_gemm / tc_probe_wg(dims, A, W or its stream, out, stream)
+        "tc_probe_gemm": (5, ctypes.c_int),
+        "tc_probe_wg": (5, ctypes.c_int),
+    },
 }
 
 

@@ -6,6 +6,13 @@
 Phases, each fatal on failure:
   1. build: every CUDA source of the port from ``batch3dmot_tpu_torch/csrc``
      (one ``nvcc`` per source, started together);
+  1b. the tensor cores' arithmetic (``scripts/probe_tc_rounding.py``): how
+     one ``mma.sync.m16n8k8`` and one ``wgmma.m64n16k8`` round the sums
+     they accumulate (the models of the adder that give every crafted
+     output), and one product through each of the kernels' product
+     routines (``tc_gemm``, ``wg_gemm``) against float64, within F64_RATIO
+     of the float32 matmul's distance, product and sums of 40 rows, while
+     the float32 matmul with TF32 allowed must fall outside;
   2. kernels: the inference kernel against its plain PyTorch version on the
      card, on inputs made from a numpy seed, at the shapes the main path
      gives it and beyond (up to the largest bucket, and the device
@@ -13,14 +20,20 @@ Phases, each fatal on failure:
      (2560, 102400)), scores and logits compared on valid edges
      (``held_to_plain``: RTOL, ATOL, and where float32 itself cannot hold
      them, a float64 run of the plain version decides), and bit-identical
-     across two runs;
+     across two runs; at F64_CASES' shapes the logits' largest distance
+     from float64 within F64_RATIO of the float32 plain version's;
   2b. the training pair (the stashing forward and the hand-written
      backward) against autograd of the plain version (``training_pair_
      checks``) through the logits (on init_params_'s draw random inputs
      saturate the sigmoid, whose gradient is then 0), six cases: logits
      and the stashes x_t, e_t, agg_t (``held_to_plain``); dx0, de0, datt
      and every weight gradient under a random
-     cotangent that is non-zero on every edge, masked ones too, against
+     cotangent that is non-zero on every edge, masked ones too; at
+     F64_CASES' shapes (ROADMAP C.5) the logits and each stash within
+     F64_RATIO of the float32 plain version's largest distance from
+     float64, the plain version with TF32 matmuls allowed failing that
+     (the control), and each gradient's RMS distance from float64 printed
+     beside float32's; the gradients against
      the plain version's own branches (a reading: a tensor with ReLU-tie
      outliers is held to a relative L2 error of MAX_REL_L2) and against it
      replaying the float64 masks of the kernel's stashes (a reading); then
@@ -299,8 +312,16 @@ RTOL, ATOL = 2e-4, 2e-5
 # over the tensor. WITNESS_C is the kernels' arithmetic against float32's:
 # a 3xTF32 product is off by up to 3 x 2^-22 of itself (each operand's
 # small part keeps 11 bits of its residual, and the small x small product
-# is dropped), 12 times a float32 product's 2^-24
+# is dropped), 12 times a float32 product's 2^-24; the sums round to
+# nearest as float32's do (csrc/tc_gemm.cuh), so they add nothing to it
 WITNESS_C = 12.0
+# ROADMAP C.5's check (2b at F64_CASES): max |kernel - f64| within
+# F64_RATIO times max |float32 plain - f64| over each of the logits (on
+# valid edges) and the stashes x_t, e_t, agg_t: the kernels at float32's
+# distance from float64. The plain version with TF32 matmuls allowed is
+# held to it too and must fail it (the control)
+F64_CASES = (("mm", (1024, 32768), 1), ("mm", (64, 512), 8))
+F64_RATIO = 2.0
 # 4i times the lidar and radar preprocessors with and without the port's
 # last-sample memo on this many image annotations of the 3k tree
 MEMO_TIME_ANNS = 100
@@ -347,14 +368,17 @@ MAX_REL_L2 = 1e-2
 #    each rounded to nearest, leave |x - big - small| <= 2^-22 |x|; the
 #    three TF32 products drop small*small and those residues: at most
 #    3 * 2^-22 |w a| per product;
-#  * a product of two TF32 values is exact in f32; the f32 sums (mma.sync's
-#    accumulators, the fp32 block_gemm of the classifier and of the node
-#    projections, the epilogue's bias and projection adds) are bounded as if
-#    each of their n addends were added with its own rounding of up to two
-#    units of 2^-23 (tensor cores align addends by truncation): at most
-#    n 2^-22 of the sum of the addends' magnitudes, which is (1 + 2^-9) sum
-#    |w a| with the split parts; n <= 3 x 256 + 4 = 772 (K at most 256:
-#    h2 and c1; three addends per TF32 product);
+#  * a product of two TF32 values is exact in f32; the f32 sums (the
+#    tensor cores' steps, each cut toward zero with 2 bits kept below the
+#    result's unit, scripts/probe_tc_rounding.py, and rounded to nearest
+#    through half a unit, then added to a register sum to nearest; the fp32
+#    block_gemm of the classifier and of the node projections; the
+#    epilogue's bias and projection adds) are bounded as if each of their
+#    n addends were added with its own rounding of up to two units of
+#    2^-23: at most n 2^-22 of the sum of the addends' magnitudes, which is
+#    (1 + 2^-9) sum |w a| with the split parts; n <= 3 x 256 + 4 = 772 (K
+#    at most 256: h2 and c1; three addends per TF32 product; the half unit
+#    and the step's big*big sum it comes from add no addend);
 #  * so one layer on stashed inputs: TAU_LAYER; a layer on a recomputed
 #    hidden layer adds that layer's error through |w| (ReLU is 1-Lipschitz),
 #    and the deepest chain is three layers (the classifier's a3), hence
@@ -365,8 +389,11 @@ RELU_TAU = 3 * TAU_LAYER * (1 + TAU_LAYER)
 # neighbour distances lie within this relative gap (f32 summation orders)
 NEAR_TIE = 1e-4
 FP32_PEAK = 67e12  # H100 SXM float32 FLOP/s outside the tensor cores
-# H100 SXM TF32 tensor-core FLOP/s; a float32-accurate product runs as three
-# TF32 products (3xTF32), so its peak is a third of this
+# H100 SXM TF32 tensor-core FLOP/s; a float32-accurate product needs the
+# three TF32 products of 3xTF32, so its peak is TF32_PEAK / 3. The kernels
+# run the big*big products once more per step to round the step's sum to
+# nearest (csrc/tc_gemm.cuh): that is the design's cost, and it shows in
+# their times, not in the bound
 TF32_PEAK = 495e12
 HBM_RATE = 3.35e12  # H100 SXM bytes/s
 TRAINVAL_CLASS_MIX = (
@@ -558,8 +585,8 @@ def train_work(inputs, widths, depth):
 
 def bound(flops, nbytes, peak=TF32_PEAK / 3):
     """The least ms for this work: the larger of flops over ``peak`` (the
-    3xTF32 tensor-core rate the message-passing kernels run at, unless
-    given) and bytes over the memory rate."""
+    3xTF32 tensor-core rate, the least a float32-accurate product on the
+    tensor cores needs, unless given) and bytes over the memory rate."""
     t_ops, t_bytes = flops / peak, nbytes / HBM_RATE
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
@@ -674,24 +701,65 @@ def compare_grads(got, ref, ref64_fn, what, branches_fn=None):
         rel_l2 = float(diff.double().norm() / r.double().norm())
         if ref64 is None:
             ref64 = ref64_fn()
-        r64 = ref64[k]
-
-        def rms(a):
-            return float(((a.double() - r64) ** 2).mean().sqrt())
-
-        tied.append((k, outside, r.numel(), rel_l2, rms(g), rms(r)))
-        if rel_l2 <= MAX_REL_L2 or rms(g) <= WITNESS_C * rms(r):
+        rk, rp = rms64(g, ref64[k]), rms64(r, ref64[k])
+        tied.append((k, outside, r.numel(), rel_l2, rk, rp))
+        if rel_l2 <= MAX_REL_L2 or rk <= WITNESS_C * rp:
             continue
-        assert branches_fn is not None, (what, k, rel_l2, rms(g), rms(r))
+        assert branches_fn is not None, (what, k, rel_l2, rk, rp)
         if branches is None:
             branches = branches_fn()
         b = branches[k]
         off = int(((g - b).abs() > GRAD_ATOL * float(b.abs().max()) + GRAD_RTOL * b.abs()).sum())
         log(f"{what} {k}: relative L2 {rel_l2:.3e} from the float32 plain version's own "
-            f"branches, RMS from float64 kernel {rms(g):.3e}, f32 plain {rms(r):.3e}; under "
+            f"branches, RMS from float64 kernel {rk:.3e}, f32 plain {rp:.3e}; under "
             f"the kernel's own ReLU masks {off} elements outside")
-        assert off == 0, (what, k, rel_l2, rms(g), rms(r), off)
+        assert off == 0, (what, k, rel_l2, rk, rp, off)
     return worst, tied
+
+
+def f64_distances(got, ref, ref64):
+    """max |got - f64|, max |ref - f64| and their ratio."""
+    r64 = as_f64(ref64)
+    d_k = float((as_f64(got) - r64).abs().max())
+    d_p = float((as_f64(ref) - r64).abs().max())
+    return d_k, d_p, d_k / d_p if d_p > 0 else (0.0 if d_k == 0 else float("inf"))
+
+
+def f64_check(case, outs, plain, tf32, ref64, mask):
+    """ROADMAP C.5's check on an F64_CASES case: for the logits (valid
+    edges) and the stashes x_t, e_t, agg_t, the kernel's largest distance
+    from float64 within F64_RATIO times the float32 plain version's; the
+    plain version with TF32 matmuls allowed (``tf32``, the control) must
+    fail it. Returns the readings."""
+    rows = {}
+    for i, what in enumerate(("logits", "x_t", "e_t", "agg_t")):
+        sel = (lambda t: t[mask]) if i == 0 else (lambda t: t)  # noqa: E731
+        d_k, d_p, ratio = f64_distances(sel(outs[i]), sel(plain[i]), sel(ref64[i]))
+        d_c, _, c_ratio = f64_distances(sel(tf32[i]), sel(plain[i]), sel(ref64[i]))
+        rows[what] = dict(kernel=d_k, plain=d_p, ratio=ratio, tf32=d_c, tf32_ratio=c_ratio)
+        log(f"2b {case} {what} against float64: max|kernel-f64| {d_k:.3e}, max|plain32-f64| "
+            f"{d_p:.3e}, ratio {ratio:.3f} (held to {F64_RATIO:g}); control, TF32 matmuls "
+            f"allowed: {d_c:.3e}, ratio {c_ratio:.1f}")
+    bad = {w: r["ratio"] for w, r in rows.items() if not r["ratio"] <= F64_RATIO}
+    assert not bad, (case, "further from float64 than F64_RATIO x float32's distance", bad)
+    assert any(r["tf32_ratio"] > F64_RATIO for r in rows.values()), (
+        case, "the control (TF32 matmuls allowed) passes the float64 check", rows)
+    return rows
+
+
+def rms64(a, r64):
+    """RMS of a tensor's distance from its float64 run."""
+    return float(((a.double() - r64) ** 2).mean().sqrt())
+
+
+def grad_rms64(got, ref, ref64):
+    """Per gradient tensor: RMS of the kernel's and of the float32 plain
+    version's distance from float64, and their ratio."""
+    out = {}
+    for k, r64 in ref64.items():
+        rk, rp = rms64(got[k], r64), rms64(ref[k], r64)
+        out[k] = (rk, rp, rk / rp if rp > 0 else (0.0 if rk == 0 else float("inf")))
+    return out
 
 
 def relu_mask_units(masks, pre64):
@@ -782,6 +850,18 @@ def training_pair_checks(models, rng):
                                    f"2b {name} ({n},{e}) x{windows} {what}", rows=i > 0)
             f_err = max(f_err, err)
         fwd_err = max(fwd_err, f_err)
+        witness = None
+        if (name, (n, e), windows) in F64_CASES:
+            allow = torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                with torch.no_grad():
+                    tf32 = fused_mp_scores_plain(*inputs, flat, meta, 6, True, carries=True)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = allow
+            witness = f64_check(f"{name} ({n},{e}) x{windows}", (scores, *stashes), ref, tf32,
+                                [plain64_out(i) for i in range(4)], inputs[-1])
+            del tf32
         del ref, ref64
         _, g_k = train_grads(model, inputs, ct, 6, True, fused_mp_train_scores)
         _, g_p = train_grads(model, inputs, ct, 6, True, fused_mp_scores_plain)
@@ -792,6 +872,17 @@ def training_pair_checks(models, rng):
                    for t in inputs]
             return train_grads(m64, i64, ct.double(), 6, True, fused_mp_scores_plain)[1]
 
+        grads64 = None
+        if witness is not None:
+            g64 = plain64()
+            plain64 = lambda g64=g64: g64  # noqa: E731
+            grads64 = grad_rms64(g_k, g_p, g64)
+            worst = sorted(grads64.items(), key=lambda kv: -kv[1][2])
+            log(f"2b {name} ({n},{e}) x{windows} gradients against float64 (RMS over each "
+                f"tensor, kernel / float32 plain): median ratio "
+                f"{float(np.median([v[2] for v in grads64.values()])):.3f}, largest "
+                + ", ".join(f"{k} {rk:.3e} / {rp:.3e} ({q:.2f})" for k, (rk, rp, q) in worst[:4]))
+            del g64
         # the plain version's own branches (a reading: ReLU ties)
         err, tied = compare_grads(g_k, g_p, plain64, f"{name} ({n},{e}) x{windows}",
                                   lambda: train_grads(model, inputs, ct, 6, True, functools.partial(
@@ -867,7 +958,8 @@ def training_pair_checks(models, rng):
                                       scale=float(pre64[li][1][at]), differ=c_differ,
                                       beyond=c_beyond, outside=c_out, err=c_err),
                          tied_tensors=len(tied), f64_masks_outside=out64,
-                         f64_masks_rel_l2=l2_64))
+                         f64_masks_rel_l2=l2_64,
+                         **(dict(f64=witness, grads_rms64=grads64) if witness else {})))
         log(f"kernel fused_mp_train {name} ({n},{e}) x{windows} empty={empty}: "
             f"max|kernel-plain| scores and stashes {f_err:.3e}, gradients {err:.3e} "
             f"over {len(g_k)} tensors ({len(tied)} held to the relative L2 bound); "
@@ -3813,12 +3905,36 @@ def main() -> int:
     # ---- 1. build -----------------------------------------------------
     nvcc = subprocess.run([cuda_build.nvcc_path(), "--version"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()[-1]
-    report = cuda_build.build(["fused_mp", "fused_mp_train", "segment_sum"])
+    report = cuda_build.build(["fused_mp", "fused_mp_train", "segment_sum", "tc_probe"])
     for name, r in report.items():
         log(f"build {name}: {r['seconds']:.1f} s ({nvcc})")
         for line in r["log"].splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas: {line.strip()}")
+
+    # ---- 1b. how the tensor cores round, one product per route ----------
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "scripts"))
+    import probe_tc_rounding
+
+    tc_rounding = probe_tc_rounding.rounding_probe()
+    for line in probe_tc_rounding.summary(tc_rounding):
+        log(f"tc probe {line}")
+    # the kernels' half_ulp rounds a step's sum to nearest only on an adder
+    # that cuts toward zero; on one that rounds to nearest it is a bias
+    for name, r in tc_rounding.items():
+        assert probe_tc_rounding.rounds(r["models"]) == "toward zero", (
+            name, "the tensor cores' sums do not cut toward zero, which half_ulp "
+            "(csrc/tc_gemm.cuh) assumes", r["models"][:4])
+    tc_products = probe_tc_rounding.product_probe()
+    for route, r in tc_products["routes"].items():
+        log(f"tc probe {route}, {tc_products['shape']} on {tc_products['activations']}: "
+            f"max|x-f64| {r['product']['max']:.3e} ({r['ratio']:.3f}x float32's), lean "
+            f"{r['product']['lean']:+.3f}; sums of {tc_products['rows_summed']} rows "
+            f"{r['sums']['max']:.3e} ({r['sums_ratio']:.3f}x), lean {r['sums']['lean']:+.3f}")
+        if route in probe_tc_rounding.KERNEL_ROUTES:
+            assert max(r["ratio"], r["sums_ratio"]) <= F64_RATIO, (route, r)
+        elif route == probe_tc_rounding.CONTROL:
+            assert r["ratio"] > F64_RATIO, ("the TF32 control is within float32's distance", r)
 
     # ---- 2. kernels against their plain versions -----------------------
     gen = torch.Generator().manual_seed(0)
@@ -3867,6 +3983,17 @@ def main() -> int:
                 ref_l = fused_mp_scores_plain(*inputs, flat, meta, 6, logits=True)
                 logit_err, _ = held_to_plain(got_l[mask], ref_l[mask], lambda: fused_mp_plain64(
                     *inputs, flat, meta, 6, logits=True)[mask], f"{case} logits")
+                if (name, (n, e), windows) in F64_CASES:
+                    # ROADMAP C.5's check on the inference kernel's logits
+                    l64 = fused_mp_plain64(*inputs, flat, meta, 6, logits=True)[mask]
+                    d_k, d_p, ratio = f64_distances(got_l[mask], ref_l[mask], l64)
+                    s_k, s_p, s_ratio = f64_distances(got[mask], ref[mask], torch.sigmoid(l64))
+                    log(f"{case} against float64: logits max|kernel-f64| {d_k:.3e}, "
+                        f"max|plain32-f64| {d_p:.3e}, ratio {ratio:.3f} (held to "
+                        f"{F64_RATIO:g}); scores {s_k:.3e}, {s_p:.3e}, ratio {s_ratio:.3f} "
+                        f"({int(((ref[mask] == 0) | (ref[mask] == 1)).sum())} of "
+                        f"{int(mask.sum())} valid scores at 0 or 1 in float32)")
+                    assert ratio <= F64_RATIO, (case, "logits further from float64", d_k, d_p)
             log(f"{case}: max|kernel-plain| {err:.3e} over {int(mask.sum())} valid edges "
                 f"(logits {logit_err:.3e}); bit-identical across two runs")
             if (n, e) == (1024, 32768):
@@ -5488,6 +5615,9 @@ def main() -> int:
         launches=launches["fused_mp"], max_abs_err=max_err,
         ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
         library_ms=None,
+        # 1b: how the tensor cores round their sums, one product per route
+        tc_probe=dict(rounding={k: v["models"] for k, v in tc_rounding.items()},
+                      products=tc_products),
         # the device pipeline (3f, 4d): launches of its per-scene and grouped
         # runs, and the kernel at the group's window grid
         device_pipeline=dict(

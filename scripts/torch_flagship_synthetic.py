@@ -75,38 +75,21 @@ def kernel_launches() -> dict:
             "segment_sum": segment_sum.launches}
 
 
-def run(args, init_state_dict=None) -> dict:
-    """The flagship run for parsed ``args``; returns the summary it prints
-    on its ``FLAGSHIP`` line. ``init_state_dict`` (the port's state-dict
-    keys) replaces the seeded initial weights."""
-    import torch
-
+def prepare(args, init_state_dict=None):
+    """The flagship's set-up for parsed ``args``: (device, the kernels
+    built, the trainer, the training windows with their scenes'
+    encodings, the held-out (scene, windows), the run's one bucket as a
+    tuple of buckets). ``init_state_dict`` (the port's state-dict keys)
+    replaces the seeded initial weights."""
     from batch3dmot_tpu_torch import resolve_device
-    from batch3dmot_tpu_torch.cli import _load_gnn_weights
-    from batch3dmot_tpu_torch.config import GNNConfig, GraphConstructionConfig, PredictConfig
+    from batch3dmot_tpu_torch.config import GNNConfig, GraphConstructionConfig
     from batch3dmot_tpu_torch.data.synthetic import make_synthetic_scene
-    from batch3dmot_tpu_torch.eval.tracking_metrics import evaluate_tracking, gt_boxes_from_scene
     from batch3dmot_tpu_torch.graph import pick_bucket
     from batch3dmot_tpu_torch.graphs import build_scene_graphs
-    from batch3dmot_tpu_torch.infer.predict import (
-        _pad_detection_count,
-        make_scene_encoded_scorer,
-        predict_scene,
-    )
-    from batch3dmot_tpu_torch.infer.tracks import (
-        all_scene_sample_tokens,
-        hierarchical_clusters,
-        scene_results,
-    )
     from batch3dmot_tpu_torch.models import MultimodalGNN
     from batch3dmot_tpu_torch.ops import cuda_build
+    from batch3dmot_tpu_torch.train.encoded import precompute_scene_encodings
     from batch3dmot_tpu_torch.train.trainer import GNNTrainer
-    from batch3dmot_tpu_torch.train.encoded import (
-        EncodedGraphBatcher,
-        materialize_encoded_dataset_dedup,
-        precompute_scene_encodings,
-    )
-    from batch3dmot_tpu_torch.utils.checkpoint import save_checkpoint
 
     if args.no_fused:
         raise SystemExit("--no-fused: the port trains 'noop' models through its kernels "
@@ -155,7 +138,37 @@ def run(args, init_state_dict=None) -> dict:
             val_scenes.append((scene, windows))
     print(f"  data ready in {time.time() - t0:.1f}s: {len(train_items)} train windows",
           flush=True)
+    return device, builds, trainer, train_items, val_scenes, buckets
 
+
+def run(args, init_state_dict=None) -> dict:
+    """The flagship run for parsed ``args``; returns the summary it prints
+    on its ``FLAGSHIP`` line. ``init_state_dict`` (the port's state-dict
+    keys) replaces the seeded initial weights."""
+    import torch
+
+    from batch3dmot_tpu_torch.cli import _load_gnn_weights
+    from batch3dmot_tpu_torch.config import PredictConfig
+    from batch3dmot_tpu_torch.eval.tracking_metrics import evaluate_tracking, gt_boxes_from_scene
+    from batch3dmot_tpu_torch.graph import pick_bucket
+    from batch3dmot_tpu_torch.infer.predict import (
+        _pad_detection_count,
+        make_scene_encoded_scorer,
+        predict_scene,
+    )
+    from batch3dmot_tpu_torch.infer.tracks import (
+        all_scene_sample_tokens,
+        hierarchical_clusters,
+        scene_results,
+    )
+    from batch3dmot_tpu_torch.train.encoded import (
+        EncodedGraphBatcher,
+        materialize_encoded_dataset_dedup,
+    )
+    from batch3dmot_tpu_torch.utils.checkpoint import save_checkpoint
+
+    device, builds, trainer, train_items, val_scenes, buckets = prepare(args, init_state_dict)
+    L = args.window_len
     steps, train_time = 0, float("nan")
     t0 = time.time()
     if args.load_checkpoint:
