@@ -1638,7 +1638,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fused-steps", type=int, default=8,
                    help="same-shape optimizer steps run per upload and fetch")
     p.add_argument("--profile", type=str, default=None,
-                   help="write a torch.profiler trace to this directory")
+                   help="write a torch.profiler trace to this directory "
+                        "(trace_<pid>.json) and, beside it, the training "
+                        "loop's counters (loop_<pid>.json: calls, steps, "
+                        "valid edges and edge slots, the device's step and "
+                        "wait seconds); a device-resident run names its "
+                        "stages train.sources, train.rows, train.steps, "
+                        "train.fetch and train.metrics")
     p.add_argument("--encoded", action="store_true",
                    help="precompute the frozen encoders once per scene and "
                         "train on gathered embeddings")

@@ -86,6 +86,7 @@ from batch3dmot_tpu_torch.parallel.mesh import (
 )
 from batch3dmot_tpu_torch.train.encoded import FROZEN_ENCODERS, DedupEncodings
 from batch3dmot_tpu_torch.train.metrics import average_precision_multi, masked_bce_terms
+from batch3dmot_tpu_torch.utils import profiling
 from batch3dmot_tpu_torch.utils.checkpoint import (
     epoch_checkpoint_name,
     load_checkpoint,
@@ -447,7 +448,10 @@ class GNNTrainer:
         ``res``; returns their fetched metrics rows, the group's one wait for
         the device. On the card each step is one replay of the captured
         step (captured on first use), between two copies on the device;
-        under gloo, whose collectives cannot be captured, an eager step."""
+        under gloo, whose collectives cannot be captured, an eager step.
+        While a profiler records, the enqueueing and the fetch are the
+        spans ``train.steps`` and ``train.fetch``, and on the card two
+        events time the steps on the device (``utils.profiling``)."""
         n = idx.shape[0]
         capture = self.device.type == "cuda" and (self.mesh is None or self.mesh.capturable)
         if self.device.type == "cuda" and not capture and not self._told_eager:
@@ -455,21 +459,28 @@ class GNNTrainer:
                 print(f"GNNTrainer: {self.mesh.backend} collectives cannot be captured in a "
                       "CUDA graph; device-resident steps run eagerly")
             self._told_eager = True
+        on = profiling.tracing()
+        span = profiling.annotate("train.steps", on)
+        span.__enter__()
         if capture:
             step = res.steps.get(train)
             if step is None:
                 step = res.steps[train] = self._capture(res, idx[0], train)
             out = torch.empty(n, step.out.numel(), device=self.device)
+            start = profiling.device_event(self.device) if on else None
             for k in range(n):
                 step.index.copy_(idx[k])
                 step.graph.replay()
                 out[k].copy_(step.out)
+            profiling.add_call(start, self.device)
             self.graph_replays += n
         else:
             out = torch.stack([self._device_step(res, ib, train) for ib in idx])
         if train:
             self.step += n
-        return out.cpu().numpy()
+        span.__exit__(None, None, None)
+        with profiling.annotate("train.fetch", on):
+            return out.cpu().numpy()
 
     def _capture(self, res, first_row, train: bool) -> "_CapturedStep":
         """One step over ``res`` captured as a CUDA graph, whose replays run
@@ -543,6 +554,8 @@ class GNNTrainer:
         graphs, enc, _ = group
         dev = self.device
         n_items = graphs.pose.shape[0] - 1
+        edges = dict(edge_valid=graphs.edge_mask.sum(1).numpy(),
+                     edge_slots=graphs.edge_mask.shape[1])
         dedup = isinstance(enc, DedupEncodings)
         if dedup and id(enc.table) not in tables:
             tables[id(enc.table)] = tuple(t.to(dev) for t in enc.table)
@@ -552,12 +565,12 @@ class GNNTrainer:
             rows = RowTable.split([pad_rows(a, self.mesh.size) for a in windowed],
                                   self.mesh, dev)
             enc = DedupEncodings(None, tables[id(enc.table)]) if dedup else None
-            return _Resident(None, enc, n_items, source=group, rows=rows)
+            return _Resident(None, enc, n_items, source=group, rows=rows, **edges)
         if dedup:
             enc = DedupEncodings(enc.det_index.to(dev), tables[id(enc.table)])
         elif enc is not None:
             enc = tuple(t.to(dev) for t in enc)
-        return _Resident(graphs.to(dev), enc, n_items, source=group)
+        return _Resident(graphs.to(dev), enc, n_items, source=group, **edges)
 
     def fit_device(self, dataset, epochs: int = 1, val_batcher=None, val_dataset=None,
                    log_dir: Optional[str] = None, version: str = "synthetic",
@@ -574,34 +587,45 @@ class GNNTrainer:
         and APs come back once. ``val_dataset`` (the same forms) is run
         every epoch over fixed sequential rows, as ``eval_epoch`` on an
         unshuffled batcher; pass it or ``val_batcher`` (the host path), not
-        both. ``writer`` as in :meth:`fit`."""
+        both. ``writer`` as in :meth:`fit`. While a profiler records, the
+        stages are spans (``train.sources``, ``train.rows``, ``train.steps``,
+        ``train.fetch``, ``train.metrics``) and the training calls are
+        counted (``utils.profiling.loop_stats``)."""
         if val_dataset is not None and val_batcher is not None:
             raise ValueError("fit_device: pass val_dataset or val_batcher, not both")
         groups = dataset if isinstance(dataset, list) else [dataset]
         vgroups = [] if val_dataset is None else (
             val_dataset if isinstance(val_dataset, list) else [val_dataset])
-        resident = self._upload_dataset_groups(groups + vgroups)
-        train_res, val_res = resident[:len(groups)], resident[len(groups):]
         b = self.cfg.batch_size
-        val_idx = [self._upload_rows(index_rows(np.arange(r.n_items), r.n_items, b))
-                   for r in val_res]
+        with profiling.annotate("train.sources"):
+            resident = self._upload_dataset_groups(groups + vgroups)
+            val_idx = [self._upload_rows(index_rows(np.arange(r.n_items), r.n_items, b))
+                       for r in resident[len(groups):]]
+        train_res, val_res = resident[:len(groups)], resident[len(groups):]
         rng = np.random.default_rng(seed)
         history: List[Dict[str, float]] = []
         for epoch in range(epochs):
             t0 = time.time()
-            metrics: Dict[str, List[float]] = defaultdict(list)
+            fetched = []
             order = rng.permutation(len(train_res)) if len(train_res) > 1 else [0]
             for gi in order:
                 res = train_res[gi]
-                idx = self._upload_rows(index_rows(rng.permutation(res.n_items), res.n_items, b))
-                self._accumulate_device_metrics(metrics, "train",
-                                                self._run_steps(res, idx, train=True))
+                on = profiling.tracing()
+                with profiling.annotate("train.rows", on):
+                    rows = index_rows(rng.permutation(res.n_items), res.n_items, b)
+                    idx = self._upload_rows(rows)
+                if on:
+                    profiling.count_rows(rows, res.edge_valid, res.edge_slots)
+                fetched.append(("train", self._run_steps(res, idx, train=True)))
             for res, idx in zip(val_res, val_idx):
-                self._accumulate_device_metrics(metrics, "val",
-                                                self._run_steps(res, idx, train=False))
-            self._finish_epoch(epoch, _nanmean_metrics(metrics), t0, history,
-                               val_batcher=val_batcher, log_dir=log_dir,
-                               version=version, verbose=verbose, writer=writer)
+                fetched.append(("val", self._run_steps(res, idx, train=False)))
+            with profiling.annotate("train.metrics"):
+                metrics: Dict[str, List[float]] = defaultdict(list)
+                for prefix, out in fetched:
+                    self._accumulate_device_metrics(metrics, prefix, out)
+                self._finish_epoch(epoch, _nanmean_metrics(metrics), t0, history,
+                                   val_batcher=val_batcher, log_dir=log_dir,
+                                   version=version, verbose=verbose, writer=writer)
         return history
 
     def _cpu_state(self) -> Dict[str, torch.Tensor]:
@@ -634,7 +658,9 @@ class _Resident:
     empty one, its captured steps by kind (True: training), the host
     dataset group it was uploaded from (None for staging buffers) and, for
     a group split over a mesh, this rank's windows (``rows``; then
-    ``graphs`` is None and ``enc`` holds only a dedup table)."""
+    ``graphs`` is None and ``enc`` holds only a dedup table). A dataset
+    group's ``edge_valid`` [rows] counts each window's valid edges, of its
+    ``edge_slots``, for the loop's counters."""
 
     graphs: Optional[PaddedGraph]
     enc: object
@@ -642,6 +668,8 @@ class _Resident:
     steps: dict = dataclasses.field(default_factory=dict)
     source: object = None
     rows: Optional[RowTable] = None
+    edge_valid: Optional[np.ndarray] = None
+    edge_slots: int = 0
 
 
 @dataclasses.dataclass

@@ -107,7 +107,7 @@ def test_reference_nested_class_map_and_unknown_keys():
 
 
 def test_profiling_trace_and_timer(tmp_path):
-    from batch3dmot_tpu_torch.utils.profiling import StepTimer, annotate, profile_trace
+    from batch3dmot_tpu_torch.utils.profiling import annotate, profile_trace
 
     with profile_trace(str(tmp_path)):
         with annotate("matmul"):
@@ -115,9 +115,3 @@ def test_profiling_trace_and_timer(tmp_path):
     (trace,) = glob.glob(str(tmp_path / "trace_*.json"))
     names = {e.get("name") for e in json.load(open(trace))["traceEvents"]}
     assert "matmul" in names
-    timer = StepTimer(warmup=1)
-    for _ in range(3):
-        with timer:
-            pass
-    s = timer.summary()
-    assert s["steps"] == 2 and s["total_s"] >= 0
