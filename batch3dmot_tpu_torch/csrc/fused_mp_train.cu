@@ -12,6 +12,7 @@
 // summed over the windows.
 //
 // Per window batch (all windows at once, in launch order):
+//   0. live_kernel: each window's live extent (below);
 //   1. cls_bwd_kernel: recompute the classifier from e_depth; ds * s(1-s)
 //      from the recomputed logit (sigmoid scores) or ds (logits); the
 //      chain down to the cotangent of e_depth, the carried dUE.
@@ -31,9 +32,31 @@
 //         transposed: the same sums, reassociated) and T += the x0 part;
 //      e. the layer's weight gradients (below).
 //   3. dx0_kernel: dx0 = dX_0 + T Wp[:, QW:]^T; the x0 weight gradients.
-// A masked edge gathers zero rows and belongs to no node's CSR row, as in
-// the Pallas kernels, but its own chain (edge update, classifier) runs like
-// any other, so a cotangent on it reaches the weights as in plain autograd.
+// A masked edge (src = dst = -1) gathers zero rows and belongs to no node's
+// CSR row, as in the Pallas kernels; its own chain (edge update,
+// classifier) still carries whatever cotangent ds puts on it.
+//
+// The live extent. live[b] is 1 + the last edge row of window b with src >=
+// 0, dst >= 0 or ds != 0 (NaN counts as non-zero), 0 when there is none; it
+// is read from the inputs on the device, each call, before the classifier.
+// A row at or past it has ds = +-0 and gathers zero rows dp = dA[dst], df =
+// dB[src], so with finite weights and stashes every value of its chain is
+// +-0 at every layer (dz, the classifier's cotangents, dp1, df1, due, dh2,
+// dh1, de, datt) and so is every term it adds to a weight gradient. The
+// training path therefore skips those rows, and its gradients equal the
+// full computation's value for value (only the sign of a zero may differ):
+//   * edge_bwd_kernel<false> returns at once from a block of rows all at or
+//     past live[b]; those rows keep the +-0 that cls_bwd_kernel wrote to
+//     dUE, and datt keeps the zeros it entered with;
+//   * wgrad_kernel ends an edge-row chunk at its last live row (a chunk
+//     over several windows also stages the dead rows between them as
+//     zeros), so every 8-row step sums the same terms; a chunk without a
+//     live row writes a zero partial.
+// The grid stays the same, so a captured CUDA graph replays any extents.
+// A masked row inside the extent, or one with a non-zero ds, runs its whole
+// chain. The mask entry (kMasks = true) runs every row, without extents.
+// live_kernel also counts the edge tiles edge_bwd_kernel runs and launches
+// (g_bwd_tiles, fused_mp_train_tiles).
 //
 // ReLU masks (a debug output, ops/fused_mp_train.py::fused_mp_train_masks):
 // given a mask buffer, the kernels also write one byte per hidden unit, 1
@@ -151,6 +174,7 @@ struct Work {
   float *c1, *c2, *dc2, *dc1, *dab, *S, *T, *dxa, *dxb;
   float *partial;
   long long partial_cap;
+  int* live;  // [B]: each window's live extent
 };
 
 // Largest sum of K * F over one batch of weight products.
@@ -209,7 +233,44 @@ long long carve(const Params& p, float* base, Work& w) {
   take(w.dxb, nr * p.nd);
   w.partial_cap = WG_MAX_CHUNKS * max_batch_weights(p);
   take(w.partial, w.partial_cap);
+  float* live;
+  take(live, p.B);
+  w.live = reinterpret_cast<int*>(live);
   return pos;
+}
+
+// ---------------------------------------------------------------------------
+// Live extents
+// ---------------------------------------------------------------------------
+
+// Edge tiles of edge_bwd_kernel<false> since the last clear, on this device:
+// [0] those that run (a tile with a live row), [1] those launched.
+__device__ unsigned long long g_bwd_tiles[2];
+
+constexpr int LIVE_NT = 1024;
+
+// live[b] for window b = blockIdx.x (the header's rule). With layers > 0,
+// also adds the window's edge tiles, run and launched, times the layers
+// to g_bwd_tiles: one atomic per window.
+__global__ void __launch_bounds__(LIVE_NT)
+live_kernel(int E, const int* __restrict__ src, const int* __restrict__ dst,
+            const float* __restrict__ ds, int* __restrict__ live, int layers) {
+  __shared__ int s_last;
+  if (threadIdx.x == 0) s_last = 0;
+  __syncthreads();
+  const size_t r0 = (size_t)blockIdx.x * E;
+  int last = 0;
+  for (int e = threadIdx.x; e < E; e += LIVE_NT)
+    if (src[r0 + e] >= 0 || dst[r0 + e] >= 0 || ds[r0 + e] != 0.f) last = e + 1;
+  last = __reduce_max_sync(0xffffffffu, last);
+  if ((threadIdx.x & 31) == 0) atomicMax(&s_last, last);
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  live[blockIdx.x] = s_last;
+  if (layers > 0) {
+    atomicAdd(&g_bwd_tiles[0], (unsigned long long)layers * ((s_last + EB_ROWS - 1) / EB_ROWS));
+    atomicAdd(&g_bwd_tiles[1], (unsigned long long)layers * ((E + EB_ROWS - 1) / EB_ROWS));
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -371,7 +432,8 @@ node_bwd_kernel(Params p, TParams q, const float* __restrict__ agg,
 // workspace rows that the weight products read go to device memory after
 // it, in coalesced row pieces (store_rows). dUE holds the cotangent of
 // e_{t+1} on entry and that of e_t on return (each block reads its rows
-// before it overwrites them). Every product on the tensor cores.
+// before it overwrites them). Every product on the tensor cores. Without
+// masks, a block whose rows all lie at or past live[b] returns at once.
 template <bool kMasks>
 __global__ void __launch_bounds__(EB_NT, 1)
 edge_bwd_kernel(Params p, TParams q, const float* __restrict__ npb_all,
@@ -379,6 +441,8 @@ edge_bwd_kernel(Params p, TParams q, const float* __restrict__ npb_all,
                 long long e_win, const float* __restrict__ att,
                 const int* __restrict__ src, const int* __restrict__ dst,
                 float* dUE, float* __restrict__ datt, Work w, LayerMasks mk) {
+  const int b = blockIdx.y, e0 = blockIdx.x * EB_ROWS;
+  if (!kMasks && e0 >= w.live[b]) return;
   extern __shared__ __align__(16) float smem[];
   const int rows = EB_ROWS;
   const int ed = p.ed, ea_w = ed * (p.with_att ? 2 : 1);
@@ -394,7 +458,6 @@ edge_bwd_kernel(Params p, TParams q, const float* __restrict__ npb_all,
   float* sP1 = sF1 + rows * lM1;
   int* sSrc = reinterpret_cast<int*>(sP1 + rows * lM1);
   int* sDst = sSrc + rows;
-  const int b = blockIdx.y, e0 = blockIdx.x * rows;
   const size_t row0 = (size_t)b * p.E + e0;
   const int nv = min(rows, p.E - e0);  // rows of real edges
   auto ok = [&](int r) { return r < nv; };
@@ -632,11 +695,13 @@ constexpr int WG_SMEM = 2 * WG_RS * (WG_LA + WG_LD) * (int)sizeof(float);
 // r % per_win of window r / per_win, at base + window * win + row * ld.
 // A null: a bias gradient (K = 1), the column sums of D. vec_a / vec_d:
 // rows and row starts are 16-byte aligned and the widths multiples of 4, so
-// a stage is copied in 16-byte pieces.
+// a stage is copied in 16-byte pieces. live: edge rows, each window's live
+// extent (rows at or past it add nothing); null: every row counts.
 struct WGDesc {
   const float* A;
   const float* D;
   float* out;
+  const int* live;
   long long a_win, d_win, poff;
   int lda, ldd, ldo, K, F, per_win, R, chunks, tiles_f, block0, elem0;
   int vec_a, vec_d;
@@ -664,14 +729,16 @@ struct RowPos {
 };
 
 // Stage rows [r, r + WG_RS) of an operand (columns c0 .. c0 + width of a
-// [rows, cols] matrix) into s [WG_RS][ld]; rows past r_hi and columns past
-// cols are zero. pos[i] is the window position of row rr0 + i * step, the
-// rows this thread copies (vector path); advanced by WG_RS afterwards.
+// [rows, cols] matrix) into s [WG_RS][ld]; rows past r_hi, rows at or past
+// their window's live extent (live non-null) and columns past cols are
+// zero. pos[i] is the window position of row rr0 + i * step, the rows this
+// thread copies (vector path); advanced by WG_RS afterwards.
 template <int WIDTH, int LD, int NPOS>
 __device__ __forceinline__ void wg_stage(float* s, const float* __restrict__ base,
                                          long long win_stride, int ld, int cols,
                                          int c0, int vec, int r, int r_hi,
-                                         int per_win, RowPos (&pos)[NPOS]) {
+                                         const int* live, int per_win,
+                                         RowPos (&pos)[NPOS]) {
   constexpr int Q = WIDTH / 4;              // float4 per row
   constexpr int STEP = WG_NT / Q;           // rows per pass
   const int rr0 = threadIdx.x / Q, c = 4 * (threadIdx.x % Q);
@@ -680,7 +747,7 @@ __device__ __forceinline__ void wg_stage(float* s, const float* __restrict__ bas
     for (int i = 0; i < NPOS; ++i) {
       const int rr = rr0 + i * STEP;
       float* dst = s + rr * LD + c;
-      if (r + rr < r_hi && c0 + c < cols)
+      if (r + rr < r_hi && c0 + c < cols && (!live || pos[i].ri < live[pos[i].win]))
         __pipeline_memcpy_async(
             dst, base + pos[i].win * win_stride + (long long)pos[i].ri * ld + c0 + c, 16);
       else
@@ -693,7 +760,8 @@ __device__ __forceinline__ void wg_stage(float* s, const float* __restrict__ bas
       if (r + rr < r_hi && c0 + cc < cols) {
         RowPos q;
         q.at(r + rr, per_win);
-        v = base[q.win * win_stride + (long long)q.ri * ld + c0 + cc];
+        if (!live || q.ri < live[q.win])
+          v = base[q.win * win_stride + (long long)q.ri * ld + c0 + cc];
       }
       s[rr * LD + cc] = v;
     }
@@ -702,18 +770,19 @@ __device__ __forceinline__ void wg_stage(float* s, const float* __restrict__ bas
   for (int i = 0; i < NPOS; ++i) pos[i].advance(WG_RS, per_win);
 }
 
-// A bias gradient's chunk: the column sums of D over rows [r_lo, r_hi),
-// 4 row groups of 64 columns, each summed in row order, then the groups in
-// order.
+// A bias gradient's chunk: the column sums of D over rows [r_lo, r_hi)
+// (less the dead rows, live non-null), 4 row groups of 64 columns, each
+// summed in row order, then the groups in order.
 __device__ void wg_bias(const WGDesc& g, int f0, int r_lo, int r_hi,
-                        float* __restrict__ out, float* red) {
+                        const int* live, float* __restrict__ out, float* red) {
   const int c = threadIdx.x & 63, grp = threadIdx.x >> 6, f = f0 + c;
   float s = 0.f;
   if (f < g.F && r_lo + grp < r_hi) {
     RowPos pos;
     pos.at(r_lo + grp, g.per_win);
     for (int r = r_lo + grp; r < r_hi; r += 4) {
-      s += g.D[pos.win * g.d_win + (long long)pos.ri * g.ldd + f];
+      if (!live || pos.ri < live[pos.win])
+        s += g.D[pos.win * g.d_win + (long long)pos.ri * g.ldd + f];
       pos.advance(4, g.per_win);
     }
   }
@@ -736,10 +805,25 @@ wgrad_kernel(const __grid_constant__ WGBatch bt, float* __restrict__ partial) {
   const int chunk = local % g.chunks, tile = local / g.chunks;
   const int k0 = (tile / g.tiles_f) * WG_TK, f0 = (tile % g.tiles_f) * WG_TF;
   const int crow = (g.R + g.chunks - 1) / g.chunks;
-  const int r_lo = chunk * crow, r_hi = min(g.R, r_lo + crow);
+  const int r_lo = chunk * crow;
+  int r_hi = min(g.R, r_lo + crow);
+  // edge rows: the chunk ends at its last live row (r_lo: none, a zero
+  // partial); a chunk over several windows also skips the dead rows between
+  // them, row by row (live)
+  const int* live = nullptr;
+  if (g.live) {
+    const int w0 = r_lo / g.per_win, w1 = (r_hi - 1) / g.per_win;
+    int end = r_lo;
+    for (int w = w0; w <= w1; ++w) {
+      const int hi = min(r_hi, w * g.per_win + g.live[w]);
+      if (hi > max(r_lo, w * g.per_win)) end = hi;
+    }
+    r_hi = end;
+    if (w1 > w0) live = g.live;
+  }
   float* out = partial + g.poff + (long long)chunk * g.K * g.F;
   if (!g.A) {
-    wg_bias(g, f0, r_lo, r_hi, out, wsm);
+    wg_bias(g, f0, r_lo, r_hi, live, out, wsm);
     return;
   }
   float* sA = wsm;                      // [2][WG_RS][WG_LA]
@@ -767,9 +851,9 @@ wgrad_kernel(const __grid_constant__ WGBatch bt, float* __restrict__ partial) {
   auto load = [&](int st) {
     const int buf = st & 1, r = r_lo + st * WG_RS;
     wg_stage<WG_TK, WG_LA>(sA + buf * WG_RS * WG_LA, g.A, g.a_win, g.lda, g.K, k0,
-                           g.vec_a, r, r_hi, g.per_win, pa);
+                           g.vec_a, r, r_hi, live, g.per_win, pa);
     wg_stage<WG_TF, WG_LD>(sD + buf * WG_RS * WG_LD, g.D, g.d_win, g.ldd, g.F, f0,
-                           g.vec_d, r, r_hi, g.per_win, pd);
+                           g.vec_d, r, r_hi, live, g.per_win, pd);
     __pipeline_commit();
   };
   if (stages > 0) load(0);
@@ -843,12 +927,13 @@ struct WGPlan {
   long long pfloats = 0;
   bool overflow = false;
   WGPlan() { bt.n = bt.blocks = bt.elems = 0; }
+  // live: edge rows' extents, or null (node rows, or every edge row)
   void add(const float* A, long long a_win, int lda, const float* D,
            long long d_win, int ldd, float* out, int ldo, int K, int F,
-           int per_win, int windows) {
+           int per_win, int windows, const int* live = nullptr) {
     if (bt.n == WG_MAX) { overflow = true; return; }
     WGDesc& g = bt.d[bt.n++];
-    g.A = A; g.D = D; g.out = out;
+    g.A = A; g.D = D; g.out = out; g.live = live;
     g.a_win = a_win; g.d_win = d_win;
     g.lda = lda; g.ldd = ldd; g.ldo = ldo; g.K = K; g.F = F;
     g.per_win = per_win;
@@ -871,8 +956,8 @@ struct WGPlan {
   }
   // bias gradient: column sums of D
   void bias(const float* D, long long d_win, int ldd, float* out, int F,
-            int per_win, int windows) {
-    add(nullptr, 0, 0, D, d_win, ldd, out, F, 1, F, per_win, windows);
+            int per_win, int windows, const int* live = nullptr) {
+    add(nullptr, 0, 0, D, d_win, ldd, out, F, 1, F, per_win, windows, live);
   }
   cudaError_t launch(const Work& w, cudaStream_t stream) {
     if (overflow || pfloats > w.partial_cap) return cudaErrorInvalidValue;
@@ -905,6 +990,41 @@ extern "C" long long fused_mp_train_mask_bytes(const int* dims) {
   const long long er = (long long)p.B * p.E, nr = (long long)p.B * p.N;
   const long long layer = er * (p.H1 + p.H2 + 2 * p.M1) + nr * (p.C1 + p.C2);
   return p.depth * layer + er * (p.L1 + p.L2 + p.L3);
+}
+
+// be = {B, E}: live [B] of the edge inputs src, dst [B, E] (masked edges
+// -1) and the cotangent ds [B, E], as fused_mp_backward computes it, on the
+// stream; counts no tiles.
+extern "C" int fused_mp_train_live(const int* be, const int* src, const int* dst,
+                                   const float* ds, int* live, void* stream_ptr) {
+  if (be[0] < 1 || be[1] < 1) return cudaErrorInvalidValue;
+  live_kernel<<<be[0], LIVE_NT, 0, reinterpret_cast<cudaStream_t>(stream_ptr)>>>(
+      be[1], src, dst, ds, live, 0);
+  return cudaGetLastError();
+}
+
+// The training backward's edge tiles since the last clear, on the current
+// device: out[0] those that ran, out[1] those launched (over the layers).
+// Waits for the stream.
+extern "C" int fused_mp_train_tiles(long long* out, void* stream_ptr) {
+  cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
+  unsigned long long v[2];
+  cudaError_t err = cudaMemcpyFromSymbolAsync(v, g_bwd_tiles, sizeof v, 0,
+                                              cudaMemcpyDeviceToHost, stream);
+  if (!err) err = cudaStreamSynchronize(stream);
+  if (err) return err;
+  out[0] = (long long)v[0];
+  out[1] = (long long)v[1];
+  return cudaSuccess;
+}
+
+// Zero the tile counts, in the stream's order.
+extern "C" int fused_mp_train_tiles_clear(void* stream_ptr) {
+  void* ptr = nullptr;
+  cudaError_t err = cudaGetSymbolAddress(&ptr, g_bwd_tiles);
+  if (err) return err;
+  return cudaMemsetAsync(ptr, 0, sizeof(g_bwd_tiles),
+                         reinterpret_cast<cudaStream_t>(stream_ptr));
 }
 
 // Floats of workspace that fused_mp_backward needs for these dims.
@@ -1008,6 +1128,13 @@ extern "C" int fused_mp_backward(
     cmk.a3 = cmk.a2 + erows_m * L2;
   }
 
+  // each window's live extent (and the tile counts); the mask entry runs
+  // every row
+  const int* lv = masks ? nullptr : w.live;
+  if (!masks) {
+    live_kernel<<<B, LIVE_NT, 0, stream>>>(E, src, dst, ds, w.live, depth);
+    if ((err = cudaGetLastError())) return err;
+  }
   const float* e_fin = es + depth * e_slot;
   if (masks)
     cls_bwd_kernel<true><<<cls_grid, NT, cls_smem, stream>>>(p, q, e_fin, e_win, ds,
@@ -1019,14 +1146,14 @@ extern "C" int fused_mp_backward(
   {
     WGPlan wb;
     const long long el = E;
-    wb.add(e_fin, e_win, ed, w.da1, el * L1, L1, g(21), L1, ed, L1, E, B);
-    wb.bias(w.da1, el * L1, L1, g(22), L1, E, B);
-    wb.add(w.a1, el * L1, L1, w.da2, el * L2, L2, g(23), L2, L1, L2, E, B);
-    wb.bias(w.da2, el * L2, L2, g(24), L2, E, B);
-    wb.add(w.a2, el * L2, L2, w.da3, el * L3, L3, g(25), L3, L2, L3, E, B);
-    wb.bias(w.da3, el * L3, L3, g(26), L3, E, B);
-    wb.add(w.a3, el * L3, L3, w.dz, el, 1, g(27), 1, L3, 1, E, B);
-    wb.bias(w.dz, el, 1, g(28), 1, E, B);
+    wb.add(e_fin, e_win, ed, w.da1, el * L1, L1, g(21), L1, ed, L1, E, B, lv);
+    wb.bias(w.da1, el * L1, L1, g(22), L1, E, B, lv);
+    wb.add(w.a1, el * L1, L1, w.da2, el * L2, L2, g(23), L2, L1, L2, E, B, lv);
+    wb.bias(w.da2, el * L2, L2, g(24), L2, E, B, lv);
+    wb.add(w.a2, el * L2, L2, w.da3, el * L3, L3, g(25), L3, L2, L3, E, B, lv);
+    wb.bias(w.da3, el * L3, L3, g(26), L3, E, B, lv);
+    wb.add(w.a3, el * L3, L3, w.dz, el, 1, g(27), 1, L3, 1, E, B, lv);
+    wb.bias(w.dz, el, 1, g(28), 1, E, B, lv);
     if ((err = wb.launch(w, stream))) return err;
   }
 
@@ -1062,23 +1189,23 @@ extern "C" int fused_mp_backward(
     WGPlan wb;
     const long long el = E, nl = N;
     // edge products (rows b * E + e)
-    wb.add(w.f1, el * M1, M1, w.df, el * M, M, g(8), M, M1, M, E, B);
-    wb.bias(w.df, el * M, M, g(9), M, E, B);
-    wb.add(w.p1, el * M1, M1, w.dp, el * M, M, g(12), M, M1, M, E, B);
-    wb.bias(w.dp, el * M, M, g(13), M, E, B);
-    wb.add(e_n, e_win, ed, w.df1, el * M1, M1, g(6), M1, ed, M1, E, B);
-    wb.bias(w.df1, el * M1, M1, g(7), M1, E, B);
-    wb.add(e_n, e_win, ed, w.dp1, el * M1, M1, g(10), M1, ed, M1, E, B);
-    wb.bias(w.dp1, el * M1, M1, g(11), M1, E, B);
-    wb.add(w.h2, el * H2, H2, w.due, el * ed, ed, g(4), ed, H2, ed, E, B);
-    wb.bias(w.due, el * ed, ed, g(5), ed, E, B);
-    wb.add(w.h1, el * H1, H1, w.dh2, el * H2, H2, g(2), H2, H1, H2, E, B);
-    wb.bias(w.dh2, el * H2, H2, g(3), H2, E, B);
-    wb.add(e_t, e_win, ed, w.dh1, el * H1, H1, g(0), H1, ed, H1, E, B);
+    wb.add(w.f1, el * M1, M1, w.df, el * M, M, g(8), M, M1, M, E, B, lv);
+    wb.bias(w.df, el * M, M, g(9), M, E, B, lv);
+    wb.add(w.p1, el * M1, M1, w.dp, el * M, M, g(12), M, M1, M, E, B, lv);
+    wb.bias(w.dp, el * M, M, g(13), M, E, B, lv);
+    wb.add(e_n, e_win, ed, w.df1, el * M1, M1, g(6), M1, ed, M1, E, B, lv);
+    wb.bias(w.df1, el * M1, M1, g(7), M1, E, B, lv);
+    wb.add(e_n, e_win, ed, w.dp1, el * M1, M1, g(10), M1, ed, M1, E, B, lv);
+    wb.bias(w.dp1, el * M1, M1, g(11), M1, E, B, lv);
+    wb.add(w.h2, el * H2, H2, w.due, el * ed, ed, g(4), ed, H2, ed, E, B, lv);
+    wb.bias(w.due, el * ed, ed, g(5), ed, E, B, lv);
+    wb.add(w.h1, el * H1, H1, w.dh2, el * H2, H2, g(2), H2, H1, H2, E, B, lv);
+    wb.bias(w.dh2, el * H2, H2, g(3), H2, E, B, lv);
+    wb.add(e_t, e_win, ed, w.dh1, el * H1, H1, g(0), H1, ed, H1, E, B, lv);
     if (att)
       wb.add(att, e_slot, ed, w.dh1, el * H1, H1, g(0) + (size_t)ed * H1, H1,
-             ed, H1, E, B);
-    wb.bias(w.dh1, el * H1, H1, g(1), H1, E, B);
+             ed, H1, E, B, lv);
+    wb.bias(w.dh1, el * H1, H1, g(1), H1, E, B, lv);
     // node products (rows b * N + n)
     wb.add(w.c2, nl * C2, C2, dX_in, nl * nd, nd, g(18), nd, C2, nd, N, B);
     wb.bias(dX_in, nl * nd, nd, g(19), nd, N, B);

@@ -102,6 +102,11 @@ _ARGTYPES = {
         #                   att, src, dst, doff, dperm, soff, sperm, work,
         #                   dx0, de0, datt, dblob, masks, stream)
         "fused_mp_backward": (23, ctypes.c_int),
+        # fused_mp_train_live(be, src, dst, ds, live, stream)
+        "fused_mp_train_live": (6, ctypes.c_int),
+        # fused_mp_train_tiles(out, stream): waits; fused_mp_train_tiles_clear(stream)
+        "fused_mp_train_tiles": (2, ctypes.c_int),
+        "fused_mp_train_tiles_clear": (1, ctypes.c_int),
     },
     "segment_sum": {
         # segment_sum_forward(dims, data, ids, mask, out, stream)

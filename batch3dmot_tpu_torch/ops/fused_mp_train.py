@@ -16,21 +16,27 @@ fallback have no counterpart here.
 raises) and differentiates :func:`fused_mp_scores_plain` with autograd for
 CPU tensors. :func:`fused_mp_train_masks`, a debug entry beside it, runs the
 pair once with the backward's ReLU masks written out (the training path
-writes none). Gradients reach the ``nn.Linear`` parameters through
-``extract_mp_params(..., trainable=True)``; the stages before the loop
-(encoders, attention, attribute encoders) are differentiated by autograd.
+writes none). The training path's backward skips each window's edge rows
+past its live extent (:func:`live_extent_plain`), whose cotangents are
+exactly zero; :func:`bwd_tiles` counts the edge tiles it ran. Gradients
+reach the ``nn.Linear`` parameters through ``extract_mp_params(...,
+trainable=True)``; the stages before the loop (encoders, attention,
+attribute encoders) are differentiated by autograd.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from batch3dmot_tpu_torch.models.gnn import PoseGNN
 from batch3dmot_tpu_torch.ops import cuda_build
 from batch3dmot_tpu_torch.ops.fused_mp import (
+    _check,
     extract_mp_params,
     fused_mp_scores_cuda,
     fused_mp_scores_plain,
@@ -41,6 +47,7 @@ from batch3dmot_tpu_torch.ops.fused_mp import (
     ptr,
     relu_masks_from_stashes,
 )
+from batch3dmot_tpu_torch.utils import profiling
 
 # Arrays of the weight blob (``mp_arrays`` order) whose transposes the
 # backward multiplies by, in ``TParams`` order (csrc/fused_mp_train.cu):
@@ -53,6 +60,16 @@ TRAIN_COVER = (1024, 32768)
 
 def _stream(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    """The training kernels' library, built and loaded on first use; from
+    then on the training loop's counters (``utils.profiling``) clear and
+    read its edge-tile counts."""
+    lib = cuda_build.load("fused_mp_train")
+    profiling.add_device_counter(clear_bwd_tiles, _tile_counts)
+    return lib
 
 
 def _flat_grads(dblob, woff, flat, meta):
@@ -130,7 +147,7 @@ def train_backward_cuda(saved, meta, kdims, woff, widths, d_out, masks=False):
     e, ed = es.shape[2], es.shape[3]
     arrays = mp_arrays(flat, meta)
     tblob, toff = pack_arrays([arrays[i].t() for i in _TRANSPOSED])
-    lib = cuda_build.load("fused_mp_train")
+    lib = _lib()
     n_work = lib.fused_mp_train_workspace(host_ptr(kdims))
     if n_work < 0:
         raise ValueError("fused MP training backward: unsupported widths")
@@ -159,6 +176,69 @@ def train_backward_cuda(saved, meta, kdims, woff, widths, d_out, masks=False):
     if not masks:
         return grads
     return grads, _mask_views(mbuf, widths, b, n, e, xs.shape[1])
+
+
+def live_extent_plain(src, dst, ds) -> torch.Tensor:
+    """Each window's live extent [B] (int32), the reference of the backward
+    kernel's: 1 + the last edge row with ``src >= 0``, ``dst >= 0`` or a
+    non-zero ``ds`` (NaN counts as non-zero), 0 where no row has one.
+    ``src`` and ``dst`` [B, E] are the kernels' edge inputs (-1 for a masked
+    edge, ``kernel_inputs``), ``ds`` [B, E] the cotangent of the scores.
+    Every row past it has an exactly zero cotangent at every layer, so the
+    training backward skips those rows (``csrc/fused_mp_train.cu``)."""
+    hot = (src >= 0) | (dst >= 0) | (ds != 0)
+    rows = torch.arange(1, hot.shape[1] + 1, device=hot.device)
+    return (hot * rows).amax(dim=1).to(torch.int32)
+
+
+def live_extent(src, dst, ds) -> torch.Tensor:
+    """:func:`live_extent_plain` of CPU tensors; of CUDA tensors (``src``,
+    ``dst`` int32, ``ds`` float32, contiguous [B, E]) the backward's own
+    kernel on the current stream."""
+    if src.device.type == "cpu":
+        return live_extent_plain(src, dst, ds)
+    if src.device.type != "cuda":
+        raise ValueError(f"live extent: unsupported device {src.device}")
+    shape = tuple(src.shape)
+    for name, t, dtype in (("src", src, torch.int32), ("dst", dst, torch.int32),
+                           ("ds", ds, torch.float32)):
+        _check(name, t, dtype, shape)
+    live = torch.empty(shape[0], dtype=torch.int32, device=src.device)
+    be = np.array(shape, np.int32)
+    err = _lib().fused_mp_train_live(
+        host_ptr(be), ptr(src), ptr(dst), ptr(ds), ptr(live), _stream(src))
+    if err != 0:
+        raise RuntimeError(f"live extent kernel failed: CUDA error {err}")
+    return live
+
+
+def _current_stream() -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+
+
+def bwd_tiles() -> Tuple[int, int]:
+    """(tiles run, tiles launched) of the training backward's edge tiles
+    (``edge_bwd_kernel``'s blocks over every layer, CUDA-graph replays
+    included) since the last :func:`clear_bwd_tiles`, on the current CUDA
+    device. Waits for the current stream."""
+    out = np.zeros(2, np.int64)
+    err = _lib().fused_mp_train_tiles(host_ptr(out), _current_stream())
+    if err != 0:
+        raise RuntimeError(f"fused MP training: reading the tile counts failed: CUDA error {err}")
+    return int(out[0]), int(out[1])
+
+
+def _tile_counts() -> dict:
+    run, launched = bwd_tiles()
+    return dict(bwd_tiles_run=run, bwd_tiles=launched) if launched else {}
+
+
+def clear_bwd_tiles() -> None:
+    """Zero :func:`bwd_tiles`' counts in the current stream's order (no
+    wait)."""
+    err = _lib().fused_mp_train_tiles_clear(_current_stream())
+    if err != 0:
+        raise RuntimeError(f"fused MP training: clearing the tile counts failed: CUDA error {err}")
 
 
 class _FusedMPTrain(torch.autograd.Function):

@@ -25,6 +25,12 @@ call, which give the device time from a call's first index copy to its
 last out copy (``step_device_s``) and from one call's end to the next
 call's start (``wait_device_s``: the device waits on the loop's host
 stages). With tracing off the loop records, times and counts nothing.
+
+A kernel may keep a counter of its own on the card, tracing or not, and
+register it (``add_device_counter``): a stretch's first training call
+clears it, and ``loop_stats()`` reads it beside the loop's own counters.
+The training backward registers its edge tiles (``bwd_tiles_run`` of
+``bwd_tiles``, ``ops.fused_mp_train.bwd_tiles``) once its library loads.
 """
 
 from __future__ import annotations
@@ -32,7 +38,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
-from typing import Iterator, List, Optional
+from typing import Callable, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -64,6 +70,8 @@ class _Loop:
 
 
 _LOOP = _Loop()
+# (clear, read) of the counters that kernels keep on the card
+_DEVICE_COUNTERS: List[Tuple[Callable[[], None], Callable[[], dict]]] = []
 
 
 def reset_loop() -> None:
@@ -72,9 +80,19 @@ def reset_loop() -> None:
     _LOOP = _Loop()
 
 
+def add_device_counter(clear: Callable[[], None], read: Callable[[], dict]) -> None:
+    """Report a counter that a kernel keeps on the card beside the loop's:
+    a stretch's first training call runs ``clear()``, and ``loop_stats()``
+    adds what ``read()`` gives (named counts; empty for none)."""
+    _DEVICE_COUNTERS.append((clear, read))
+
+
 def count_rows(rows: np.ndarray, valid_edges: np.ndarray, edge_width: int) -> None:
     """One training call of index rows ``rows`` [steps, B] over windows of
     ``valid_edges`` each, padded to ``edge_width`` edge slots."""
+    if _LOOP.calls == 0:
+        for clear, _ in _DEVICE_COUNTERS:
+            clear()
     _LOOP.calls += 1
     _LOOP.steps += rows.shape[0]
     _LOOP.edges_valid += int(valid_edges[rows].sum())
@@ -100,9 +118,10 @@ def add_call(start, device: torch.device) -> None:
 
 def loop_stats() -> dict:
     """The loop's counters since ``reset_loop()``: ``calls``, ``steps``,
-    ``edges_valid``, ``edge_slots`` and, where a call ran on the card,
+    ``edges_valid``, ``edge_slots``; where a call ran on the card,
     ``step_device_s`` and ``wait_device_s`` (one synchronise resolves
-    them). Empty when nothing was recorded."""
+    them); and the registered device counters since the first call
+    (``add_device_counter``). Empty when nothing was recorded."""
     lp = _LOOP
     if lp.pending:
         lp.pending[-1][1].synchronize()
@@ -116,6 +135,8 @@ def loop_stats() -> dict:
     if lp.calls:
         out.update(calls=lp.calls, steps=lp.steps, edges_valid=lp.edges_valid,
                    edge_slots=lp.edge_slots)
+        for _, read in _DEVICE_COUNTERS:
+            out.update(read())
     if lp.last_end is not None:
         out.update(step_device_s=lp.step_s, wait_device_s=lp.wait_s)
     return out

@@ -28,7 +28,9 @@ Phases, each fatal on failure:
      saturate the sigmoid, whose gradient is then 0), six cases: logits
      and the stashes x_t, e_t, agg_t (``held_to_plain``); dx0, de0, datt
      and every weight gradient under a random
-     cotangent that is non-zero on every edge, masked ones too; at
+     cotangent, zero on masked edges as the masked loss gives it (the
+     backward then skips each window's tail) at the main path's (256,
+     4096) x8 and three more cases, non-zero on every edge in two; at
      F64_CASES' shapes (ROADMAP C.5) the logits and each stash within
      F64_RATIO of the float32 plain version's largest distance from
      float64, the plain version with TF32 matmuls allowed failing that
@@ -46,8 +48,9 @@ Phases, each fatal on failure:
      (c) a control, one unit flipped (the largest |z64| of layer 3's c1,
      the combine's first hidden layer, on a node a valid edge touches),
      must fail both; (d) the backward
-     with the mask buffer gives the training path's gradients bit for bit,
-     and the training path twice too;
+     with the mask buffer gives the training path's gradients bit for bit
+     (it runs every row, so under a masked cotangent this holds the
+     training path's skip of the tail), and the training path twice too;
   2c. the segment-sum kernel against its plain version at the shapes of the
      knn_conv_mode='active' path (message passing, GAT messages and softmax
      denominators), the largest bucket (D 128 and D 1), int64 ids (as the
@@ -423,14 +426,17 @@ def cuda_ms(fn, reps, warmup=2):
     return start.elapsed_time(end) / reps
 
 
-# 2b's cases: (model, (N, E), windows, all-padding windows at the end)
+# 2b's cases: (model, (N, E), windows, all-padding windows at the end,
+# cotangent masked as the masked loss gives it: zero on masked edges, so the
+# backward skips each window's tail; unmasked, it is non-zero on every edge
+# and the live extent covers every row)
 TRAIN_CASES = [
-    ("mm", (64, 512), 8, 0),
-    ("mm", (256, 4096), 8, 0),
-    ("mm", (512, 4096), 2, 0),
-    ("pose", (128, 1024), 8, 0),
-    ("mm", (1024, 32768), 1, 0),
-    ("mm", (64, 512), 2, 1),  # the second window is all padding
+    ("mm", (64, 512), 8, 0, False),
+    ("mm", (256, 4096), 8, 0, True),  # the main path's bucket and batch
+    ("mm", (512, 4096), 2, 0, True),
+    ("pose", (128, 1024), 8, 0, True),
+    ("mm", (1024, 32768), 1, 0, False),
+    ("mm", (64, 512), 2, 1, True),  # the second window is all padding
 ]
 
 
@@ -826,12 +832,14 @@ def training_pair_checks(models, rng):
 
     fwd_err = bwd_err = 0.0
     rows = []
-    for name, (n, e), windows, empty in TRAIN_CASES:
+    for name, (n, e), windows, empty, masked in TRAIN_CASES:
         model = models[name]
         pose = name == "pose"
         nd, ed = model.node_dim, model.edge_dim
         inputs = random_inputs(rng, windows, n, e, nd, ed, not pose, empty)
         ct = torch.from_numpy(rng.uniform(-1.0, 1.0, (windows, e)).astype(np.float32)).cuda()
+        if masked:
+            ct = ct * inputs[5]
         flat, meta = extract_mp_params(model, not pose, nd, ed)
         scores, stashes, grads_m, kmasks = fused_mp_train_masks(*inputs, flat, meta, 6, ct, True)
         with torch.no_grad():
@@ -960,7 +968,8 @@ def training_pair_checks(models, rng):
                          tied_tensors=len(tied), f64_masks_outside=out64,
                          f64_masks_rel_l2=l2_64,
                          **(dict(f64=witness, grads_rms64=grads64) if witness else {})))
-        log(f"kernel fused_mp_train {name} ({n},{e}) x{windows} empty={empty}: "
+        log(f"kernel fused_mp_train {name} ({n},{e}) x{windows} empty={empty} "
+            f"masked cotangent={masked}: "
             f"max|kernel-plain| scores and stashes {f_err:.3e}, gradients {err:.3e} "
             f"over {len(g_k)} tensors ({len(tied)} held to the relative L2 bound); "
             f"float64 masks of the kernel's stashes ({near} units where a float32 recompute "

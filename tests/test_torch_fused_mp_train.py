@@ -19,6 +19,8 @@ from batch3dmot_tpu_torch.ops.fused_mp import extract_mp_params, fused_mp_scores
 from batch3dmot_tpu_torch.ops.fused_mp_train import (
     fused_mp_train_scores,
     fused_training_scores,
+    live_extent,
+    live_extent_plain,
 )
 
 torch.set_num_threads(1)
@@ -234,14 +236,17 @@ def kernel_and_plain(model, arrays, depth, logits):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("masked_ct", [False, True], ids=["every_edge", "masked_loss"])
 @pytest.mark.parametrize(
     "name, bucket, windows, empty",
     [("mm", (64, 512), 2, 1), ("mm", (256, 4096), 2, 0), ("mm", (512, 4096), 1, 0),
      ("pose", (128, 1024), 3, 1)],
 )
-def test_cuda_training_kernels_match_plain(name, bucket, windows, empty):
+def test_cuda_training_kernels_match_plain(name, bucket, windows, empty, masked_ct):
     """The Hopper pair against autograd of the plain version on the card,
-    and the backward bit-identical across two runs."""
+    and the backward bit-identical across two runs; under a cotangent that
+    is non-zero on every edge (nothing to skip) and under the masked loss's,
+    zero on masked edges (the backward skips each window's tail)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -249,6 +254,8 @@ def test_cuda_training_kernels_match_plain(name, bucket, windows, empty):
     pose = name == "pose"
     arrays = _train_inputs(np.random.default_rng(5), windows, *bucket,
                            model.node_dim, model.edge_dim, not pose, empty)
+    if masked_ct:
+        arrays = (*arrays[:6], arrays[6] * arrays[5])
     f0, b0 = fused_mp_train_scores.fwd_launches, fused_mp_train_scores.bwd_launches
     (got, g_k), (ref, g_p) = kernel_and_plain(model, arrays, 6, pose)
     torch.cuda.synchronize()
@@ -261,6 +268,118 @@ def test_cuda_training_kernels_match_plain(name, bucket, windows, empty):
     (_, again), _ = kernel_and_plain(model, arrays, 6, pose)
     for k in g_k:
         assert torch.equal(g_k[k], again[k]), f"{k} differs between two backward runs"
+
+
+# Two windows of 12 edge rows as the kernels take them (src = dst = -1 on a
+# masked row): the valid rows, then (window, row, ds) set after them (a
+# masked row's cotangent, or a valid row's set to zero), and the live
+# extents by hand.
+LIVE_CASES = {
+    "tail": ([range(7), range(3)], [], [7, 3]),
+    "interior": ([[0, 1, 4, 5, 9], [2]], [], [10, 3]),
+    "masked_ds": ([range(4), range(6)], [(0, 8, 0.5), (1, 11, -1e-30)], [9, 12]),
+    "nan_ds": ([range(2), range(5)], [(0, 5, float("nan")), (1, 10, -0.0)], [6, 5]),
+    "all_masked": ([[], []], [], [0, 0]),
+    "none_masked": ([range(12), range(12)], [(1, 11, 0.0)], [12, 12]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LIVE_CASES))
+def test_live_extent_plain_by_hand(case):
+    """The live extent's reference: 1 + the last row with an index or a
+    non-zero (or NaN) cotangent, 0 for none; masked rows with a zero
+    cotangent inside the extent or past it change nothing. The CPU wrapper
+    is the reference."""
+    valid, hot, want = LIVE_CASES[case]
+    rng = np.random.default_rng(0)
+    src = torch.full((2, 12), -1, dtype=torch.int32)
+    dst = torch.full((2, 12), -1, dtype=torch.int32)
+    ds = torch.zeros(2, 12)
+    for b, rows in enumerate(valid):
+        rows = list(rows)
+        src[b, rows] = torch.from_numpy(rng.integers(0, 5, len(rows)).astype(np.int32))
+        dst[b, rows] = torch.from_numpy(rng.integers(0, 5, len(rows)).astype(np.int32))
+        ds[b, rows] = torch.from_numpy(rng.uniform(0.1, 1.0, len(rows)).astype(np.float32))
+    for b, row, v in hot:
+        ds[b, row] = v
+    got = live_extent_plain(src, dst, ds)
+    assert got.dtype == torch.int32 and got.tolist() == want
+    assert torch.equal(live_extent(src, dst, ds), got)
+    with pytest.raises(ValueError, match="unsupported device"):
+        live_extent(src.to("meta"), dst.to("meta"), ds.to("meta"))
+
+
+def _extent_batch(case, rng, b, e):
+    """Mask and cotangent [b, e] of a card case: each window's valid edges
+    a prefix (padding in the tail), the cotangent zero on masked rows as the
+    masked loss gives it, then the case's change."""
+    n_valid = rng.integers(e // 8, 3 * e // 4, b)
+    mask = np.arange(e)[None, :] < n_valid[:, None]
+    if case == "interior":
+        mask &= rng.random((b, e)) >= 0.25
+    elif case == "empty_window":
+        mask[0] = False
+    elif case == "full_window":
+        mask[-1] = True
+    ct = np.where(mask, rng.uniform(-1.0, 1.0, (b, e)), 0.0).astype(np.float32)
+    if case == "masked_ds":
+        ct[0, n_valid[0] + e // 8] = 0.5
+    return mask, ct
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "name, case",
+    [("mm", c) for c in ("tail", "interior", "masked_ds", "empty_window", "full_window")]
+    + [("pose", "tail")],
+)
+def test_cuda_live_extent_skip_is_exact(name, case):
+    """(128, 640) x3, depth 6 (wgrad chunks of 240 rows straddle the
+    windows): the training path, which skips the rows past each window's
+    live extent, against the mask entry, which runs every row, on the same
+    inputs: dx0, de0, datt and every weight gradient equal (torch.equal).
+    The kernel's extents equal the reference's, and the tile counts grow by
+    the layers' 32-row tiles up to the extents, of all the tiles launched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    from batch3dmot_tpu_torch.ops.fused_mp_train import bwd_tiles, fused_mp_train_masks
+
+    model = init_params_(make_model(name), torch.Generator().manual_seed(0)).cuda()
+    pose, depth, (b, n, e) = name == "pose", model.depth, (3, 128, 640)
+    rng = np.random.default_rng(7)
+    x0, e0, att, src, dst, _, _ = _train_inputs(rng, b, n, e, model.node_dim,
+                                                model.edge_dim, not pose, 0)
+    mask, ct = _extent_batch(case, rng, b, e)
+    cuda = lambda a: None if a is None else torch.from_numpy(a).cuda()  # noqa: E731
+    x0, e0, att, src, dst, mask, ct = map(cuda, (x0, e0, att, src, dst, mask, ct))
+    flat, meta = extract_mp_params(model, not pose, model.node_dim, model.edge_dim,
+                                   trainable=True)
+    leaves = [None if t is None else t.clone().requires_grad_() for t in (x0, e0, att)]
+    before = bwd_tiles()
+    scores = fused_mp_train_scores(*leaves, src, dst, mask, flat, meta, depth, pose)
+    got = torch.autograd.grad(scores, [t for t in (*leaves, *flat) if t is not None], ct)
+    after = bwd_tiles()
+    _, _, full, _ = fused_mp_train_masks(x0, e0, att, src, dst, mask, flat, meta, depth,
+                                         ct, logits=pose)
+    full = [g for g in full if g is not None]
+    assert len(got) == len(full)
+    for i, (a, w) in enumerate(zip(got, full)):
+        assert torch.equal(a, w), f"gradient {i} differs from the full computation"
+
+    neg = torch.full_like(src, -1)
+    src_m, dst_m = torch.where(mask, src, neg), torch.where(mask, dst, neg)
+    live = live_extent(src_m, dst_m, ct)
+    want = live_extent_plain(src_m.cpu(), dst_m.cpu(), ct.cpu())
+    assert torch.equal(live.cpu(), want)
+    assert int(want.min()) < e  # every batch has a tail to skip
+    if case == "empty_window":
+        assert int(want[0]) == 0
+    if case == "full_window":
+        assert int(want[-1]) == e
+    if case == "masked_ds":
+        assert int(want[0]) > int(mask[0].sum())
+    tiles = [depth * int(((want + 31) // 32).sum()), depth * b * -(-e // 32)]
+    assert [after[0] - before[0], after[1] - before[1]] == tiles
 
 
 @pytest.mark.parametrize("name", ["mm", "pose"])

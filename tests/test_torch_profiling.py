@@ -102,11 +102,52 @@ def test_spans_and_counters_under_a_trace(tmp_path, plural):
     assert profiling.loop_stats() == {}
 
 
+def test_backward_tiles_beside_the_counters(monkeypatch):
+    """A registered device counter is cleared at a stretch's first training
+    call (once a stretch), and ``loop_stats`` reports it beside the loop's
+    counters; with none registered there is nothing to clear or report.
+    Loading the training backward's library registers its tile counts."""
+    from batch3dmot_tpu_torch.ops import cuda_build, fused_mp_train
+
+    monkeypatch.setattr(profiling, "_DEVICE_COUNTERS", [])
+    rows, valid = np.zeros((3, B), np.int64), np.array([7])
+    profiling.reset_loop()
+    profiling.count_rows(rows, valid, 16)
+    assert "bwd_tiles" not in profiling.loop_stats()
+    cleared = []
+    profiling.add_device_counter(lambda: cleared.append(1),
+                                 lambda: dict(bwd_tiles_run=51, bwd_tiles=100))
+    profiling.reset_loop()
+    for _ in range(2):
+        profiling.count_rows(rows, valid, 16)
+    assert len(cleared) == 1
+    stats = profiling.loop_stats()
+    assert (stats["steps"], stats["bwd_tiles_run"], stats["bwd_tiles"]) == (6, 51, 100)
+    profiling.reset_loop()
+    assert profiling.loop_stats() == {}
+    profiling.count_rows(rows, valid, 16)
+    assert len(cleared) == 2
+    profiling.reset_loop()
+
+    monkeypatch.setattr(profiling, "_DEVICE_COUNTERS", [])
+    monkeypatch.setattr(cuda_build, "load", lambda name: name)
+    fused_mp_train._lib.cache_clear()
+    try:
+        assert fused_mp_train._lib() == "fused_mp_train"
+        fused_mp_train._lib()
+        assert profiling._DEVICE_COUNTERS == [
+            (fused_mp_train.clear_bwd_tiles, fused_mp_train._tile_counts)]
+    finally:
+        fused_mp_train._lib.cache_clear()
+
+
 @pytest.mark.cuda
 def test_device_intervals_on_the_card():
     """On the card, under a profiler: two epochs of replays give a positive
     step time and a wait that is not negative, and the counters match the
-    hand count; with no profiler nothing is recorded."""
+    hand count, the backward's edge tiles too (the layers' 32-row tiles up
+    to each stepped window's last valid edge, of all those launched; the
+    untraced epoch's are cleared); with no profiler nothing is recorded."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from torch.profiler import ProfilerActivity, profile
@@ -124,4 +165,8 @@ def test_device_intervals_on_the_card():
         2, steps, edges, slots)
     assert stats["step_device_s"] > 0 and stats["wait_device_s"] >= 0
     assert np.isfinite([stats["step_device_s"], stats["wait_device_s"]]).all()
+    depth, (n_items, width) = trainer.model.depth, ds[0].edge_mask[:-1].shape
+    run = depth * int(((ds[0].edge_mask[:-1].sum(1) + 31) // 32).sum())
+    assert (stats["bwd_tiles_run"], stats["bwd_tiles"]) == (
+        2 * run, depth * steps * B * -(-width // 32))
     profiling.reset_loop()
